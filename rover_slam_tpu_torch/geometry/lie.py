@@ -1,0 +1,140 @@
+"""Batched SO(3) / SE(3) on tensors with arbitrary leading batch dimensions.
+
+Counterpart of rover_slam_tpu/geometry/lie.py (SO(3) and SE(3) parts; Sim(3)
+belongs to loop closing, a later slice). Rotations are 3x3 matrices,
+translations 3-vectors; small-angle branches use `torch.where` with safe
+denominators exactly as the JAX package does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def _eye(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def so3_hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of w[..., 3] -> [..., 3, 3]."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([z, -wz, wy], dim=-1),
+        torch.stack([wz, z, -wx], dim=-1),
+        torch.stack([-wy, wx, z], dim=-1),
+    ], dim=-2)
+
+
+def so3_vee(W: torch.Tensor) -> torch.Tensor:
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _sinc_coeffs(theta2: torch.Tensor):
+    """(A, B, C) = (sin t / t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe."""
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < 1e-8
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    return A, B, C
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: w[..., 3] -> R[..., 3, 3]."""
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, _ = _sinc_coeffs(theta2)
+    W = so3_hat(w)
+    return _eye(w) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3]; generic, small-angle and near-pi branches."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos_t)
+    w_skew = so3_vee(R - R.transpose(-1, -2)) * 0.5
+    sin_t = torch.sin(theta)
+    w_generic = w_skew * (theta / torch.clamp(sin_t, min=1e-12))[..., None]
+    w_small = w_skew * (1.0 + theta[..., None] ** 2 / 6.0)
+    Rp = R + _eye(R)
+    diag = torch.stack([Rp[..., 0, 0], Rp[..., 1, 1], Rp[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    idx = k[..., None, None].expand(*k.shape, 3, 1)
+    col = torch.gather(Rp, -1, idx)[..., 0]
+    axis = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=1e-12)
+    sgn = torch.sign(torch.sum(axis * w_skew, dim=-1, keepdim=True))
+    sgn = torch.where(sgn == 0.0, 1.0, sgn)
+    w_pi = axis * sgn * theta[..., None]
+    small = (theta < 1e-5)[..., None]
+    near_pi = (theta > math.pi - 1e-3)[..., None]
+    return torch.where(small, w_small, torch.where(near_pi, w_pi, w_generic))
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1)
+    _, B, C = _sinc_coeffs(theta2)
+    W = so3_hat(w)
+    return _eye(w) - B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = so3_hat(w)
+    small = theta2 < 1e-8
+    coef = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 / theta2) - (1.0 + torch.cos(theta))
+        / (2.0 * theta * torch.sin(theta) + _EPS))
+    return _eye(w) + 0.5 * W + coef[..., None, None] * (W @ W)
+
+
+def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    return so3_right_jacobian(-w)
+
+
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    return so3_right_jacobian_inv(-w)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation onto SO(3) via SVD."""
+    U, _, Vt = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones_like(det)
+    D = torch.stack([one, one, det], dim=-1)
+    return (U * D[..., None, :]) @ Vt
+
+
+def se3_exp(xi: torch.Tensor):
+    """xi = [rho(3), phi(3)] -> (R, t) with t = Jl(phi) rho."""
+    rho, phi = xi[..., :3], xi[..., 3:6]
+    R = so3_exp(phi)
+    t = torch.einsum("...ij,...j->...i", so3_left_jacobian(phi), rho)
+    return R, t
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    phi = so3_log(R)
+    rho = torch.einsum("...ij,...j->...i", so3_left_jacobian_inv(phi), t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_inverse(R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra,ta) * (Rb,tb): first apply b, then a."""
+    return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def se3_apply(R, t, X):
+    """Transform points X[..., 3]."""
+    return torch.einsum("...ij,...j->...i", R, X) + t

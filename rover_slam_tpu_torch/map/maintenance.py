@@ -1,0 +1,164 @@
+"""Map maintenance run by the keyframe insert: neighbourhood fusion,
+representative descriptors, visibility statistics, exact observation counts
+and landmark culling.
+
+Counterpart of the keyframe-insert subset of rover_slam_tpu/map/maintenance.py
+(`fuse_into_keyframe`, `update_distinctive_descriptors`,
+`update_found_visible`, `recount_lm_obs`, `cull_landmarks`). Keyframe culling
+and the global BA belong to later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..geometry import cameras
+from ..ops import association as assoc
+from ..ops import scatterless
+from . import map_state as ms
+
+
+def cull_landmarks(state: ms.MapState, min_found_ratio: float = 0.05,
+                   min_obs: int = 1, min_age_kf: int = 3) -> ms.MapState:
+    """Deactivate weak landmarks (reference MapPointCulling)."""
+    found_ratio = state.lm_found.float() / torch.clamp(state.lm_visible.float(), min=1.0)
+    age = state.n_kf - state.lm_first_kf
+    weak = (found_ratio < min_found_ratio) | ((age >= min_age_kf) & (state.lm_n_obs <= min_obs))
+    kill = state.lm_active & weak & (state.lm_first_kf >= 0)
+    return ms.remove_landmarks(state, kill)
+
+
+def fuse_into_keyframe(state: ms.MapState, kf_id, cam_params,
+                       cam_kind: int = cameras.PINHOLE, radius: float = 3.0,
+                       th_desc2: float = 1.44, obs=None):
+    """Project landmarks seen by covisible neighbours into keyframe kf_id; a
+    projection that lands on a keypoint holding a different landmark fuses
+    the two (the more-observed wins), and empty keypoints gain observations.
+    `obs` is an optional precomputed observation matrix (the insert shares
+    one build). Returns (state, n_fused, n_added)."""
+    K, L, N = state.K, state.L, state.N
+    dev = state.device
+    if obs is None:
+        obs = ms.observation_matrix(state)
+    W = obs @ obs.T
+    W.fill_diagonal_(0.0)
+    nbr = (W[kf_id] > 0) & (torch.arange(K, device=dev) != kf_id)
+    seen_by_nbr = (nbr.float() @ obs) > 0
+    observed_here = obs[kf_id] > 0
+    cand = state.lm_active & seen_by_nbr & ~observed_here
+    uv, _, visible = assoc.project_landmarks(
+        state.lm_pos, cand, state.kf_R_cw[kf_id], state.kf_t_cw[kf_id],
+        cam_params, cam_kind)
+    kpt_lm, _ = assoc.projection_match(
+        uv, state.lm_desc.float(), visible, state.kf_kpts[kf_id],
+        state.kf_desc[kf_id].float(), state.kf_kpt_valid[kf_id],
+        radius=radius, th_desc2=th_desc2)
+    li = state.kf_landmark_idx[kf_id]
+    proj = kpt_lm
+    pc = proj.long().clamp(0, L - 1)
+    lc = li.long().clamp(0, L - 1)
+
+    # Duplicate fusion: the projected landmark collides with an existing one.
+    dup = (proj >= 0) & (li >= 0) & (proj != li)
+    n_p, n_l = state.lm_n_obs[pc], state.lm_n_obs[lc]
+    keep_proj = (n_p > n_l) | ((n_p == n_l) & (pc < lc))
+    winner = torch.where(keep_proj, proj, li)
+    loser = torch.where(keep_proj, li, proj)
+    ar_L = torch.arange(L, dtype=torch.int32, device=dev)
+    table = scatterless.seg_pick(torch.where(dup, loser, -1), winner, dup, L,
+                                 ar_L).to(torch.int32)
+    table = table[table.long()]
+    killed = scatterless.seg_any(torch.where(dup, loser, -1), dup, L)
+    state = ms.replace_landmark_ids(state, table)
+    state = state.replace(lm_active=state.lm_active & ~killed)
+
+    # New observations on empty keypoint slots.
+    li2 = state.kf_landmark_idx[kf_id]
+    proj2 = torch.where(proj >= 0, table[pc], -1)
+    add = ((proj2 >= 0) & (li2 < 0) & state.kf_kpt_valid[kf_id]
+           & state.lm_active[proj2.long().clamp(0, L - 1)])
+    li_new = torch.where(add, proj2, li2)
+    kf_row = torch.as_tensor(kf_id, device=dev).reshape(1).long()
+    state = state.replace(kf_landmark_idx=state.kf_landmark_idx.index_copy(
+        0, kf_row, li_new[None].to(torch.int32)))
+
+    # Incremental observation counts: winners absorb the losers' counts
+    # (deduped against keyframes already observing the winner), losers zero
+    # out, newly added observations count one.
+    w_c = winner.long().clamp(0, L - 1)
+    l_c = loser.long().clamp(0, L - 1)
+    overlap = torch.einsum("kn,kn->n", obs[:, w_c], obs[:, l_c])
+    absorbed = torch.clamp(state.lm_n_obs[l_c].float() - overlap, min=0.0)
+    gained = scatterless.seg_add(torch.where(dup, winner, -1),
+                                 torch.where(dup, absorbed, 0.0)[:, None], L)[:, 0]
+    added = scatterless.seg_count(torch.where(add, proj2, -1), L)
+    lm_n_obs = torch.where(killed, 0, state.lm_n_obs + gained.to(torch.int32) + added)
+    state = state.replace(lm_n_obs=lm_n_obs.to(torch.int32))
+    return state, torch.sum(dup), torch.sum(add)
+
+
+def recount_lm_obs(state: ms.MapState, obs=None) -> ms.MapState:
+    """Exact landmark observation counts: column sums of the observation
+    matrix."""
+    if obs is None:
+        obs = ms.observation_matrix(state)
+    return state.replace(lm_n_obs=torch.sum(obs, dim=0).to(torch.int32))
+
+
+def update_distinctive_descriptors(state: ms.MapState, kf_id, n_obs_kfs: int = 12,
+                                   obs=None) -> ms.MapState:
+    """For every landmark observed by kf_id, set its descriptor to the
+    observation descriptor with the minimum median L2^2 to the others; the
+    observations are taken from kf_id and its top covisible keyframes."""
+    K, L, N = state.K, state.L, state.N
+    dev = state.device
+    O = min(n_obs_kfs, K)
+    D = state.lm_desc.shape[1]
+    li = state.kf_landmark_idx[kf_id]
+    touched = li.long().clamp(0, L - 1)
+    t_valid = (li >= 0) & state.kf_kpt_valid[kf_id] & state.lm_active[touched]
+
+    if obs is None:
+        obs = ms.observation_matrix(state)
+    kf_row = torch.as_tensor(kf_id, device=dev).reshape(1).long()
+    w_row = (obs @ obs[kf_id]).index_fill(0, kf_row, 0.0)
+    nbr_w, nbr_ids = scatterless.top_k(w_row, O - 1)
+    nbr_ids = torch.where(nbr_w > 0, nbr_ids, -1)
+    obs_kfs = torch.cat([kf_row, nbr_ids])
+    obs_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), nbr_ids >= 0])
+    ok_c = obs_kfs.clamp(0, K - 1)
+
+    li_all = state.kf_landmark_idx[ok_c]                       # [O, N]
+    lm_of = torch.where((li_all >= 0) & state.kf_kpt_valid[ok_c]
+                        & (state.kf_active[ok_c] & obs_ok)[:, None],
+                        li_all.long(), -2)
+    eq = lm_of[None, :, :] == touched[:, None, None]           # [N, O, N]
+    ar_n = torch.arange(N, device=dev)
+    slot_tk = torch.where(eq, ar_n[None, None, :], N).amin(dim=2)   # [N, O]
+    has_obs = slot_tk < N
+
+    desc_pad = torch.cat([state.kf_desc[ok_c],
+                          torch.zeros((O, 1, D), dtype=state.kf_desc.dtype, device=dev)],
+                         dim=1)
+    obs_desc = desc_pad[torch.arange(O, device=dev)[None, :],
+                        slot_tk.clamp(0, N)].float()           # [N, O, D]
+    sq = torch.sum(obs_desc ** 2, dim=-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.einsum("nkd,nqd->nkq",
+                                                              obs_desc, obs_desc)
+    big = 1e9
+    pair_ok = has_obs[:, :, None] & has_obs[:, None, :]
+    d2 = torch.where(pair_ok, torch.clamp(d2, min=0.0), torch.nan)
+    med = torch.nanquantile(d2, 0.5, dim=2)                    # numpy-style median
+    med = torch.where(has_obs, med, big)
+    best_k = torch.argmin(med, dim=1)
+    new_desc = obs_desc[torch.arange(N, device=dev), best_k]
+    write = t_valid & (med.amin(dim=1) < big)
+    lm_desc = scatterless.seg_pick(torch.where(write, touched, -1),
+                                   new_desc.to(state.lm_desc.dtype), write, L,
+                                   state.lm_desc)
+    return state.replace(lm_desc=lm_desc)
+
+
+def update_found_visible(state: ms.MapState, visible_mask, found_mask) -> ms.MapState:
+    """Landmark statistics (reference MapPoint::IncreaseVisible/Found)."""
+    return state.replace(lm_visible=state.lm_visible + visible_mask.to(torch.int32),
+                         lm_found=state.lm_found + found_mask.to(torch.int32))

@@ -1,0 +1,76 @@
+"""Segment reductions (counterpart of rover_slam_tpu/ops/scatterless.py) and
+the index helpers with jax.lax semantics the port needs without a host sync
+(`top_k` tie order, `jnp.nonzero(size=)`).
+
+The JAX package writes the reductions as one-hot contractions because
+scatters are slow on the TPU; here they are native scatter ops with the same
+results. Indices outside [0, size) contribute nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _bucket(idx: torch.Tensor, size: int, mask=None) -> torch.Tensor:
+    """int64 indices with out-of-range (and unmasked) entries sent to a
+    spill bucket at `size`."""
+    ok = (idx >= 0) & (idx < size)
+    if mask is not None:
+        ok = ok & mask
+    return torch.where(ok, idx.long(), size)
+
+
+def seg_add(idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
+    """Segment-sum vals [N, ...] by idx [N] into [size, ...]."""
+    out = torch.zeros((size + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, _bucket(idx, size), vals)[:size]
+
+
+def seg_count(idx: torch.Tensor, size: int, mask=None) -> torch.Tensor:
+    """[size] int32: number of (masked) entries per segment."""
+    b = _bucket(idx, size, mask)
+    out = torch.zeros(size + 1, dtype=torch.int32, device=idx.device)
+    return out.scatter_add_(0, b, torch.ones_like(b, dtype=torch.int32))[:size]
+
+
+def seg_any(idx: torch.Tensor, mask: torch.Tensor, size: int) -> torch.Tensor:
+    """[size] bool: segment s has any masked element."""
+    return seg_count(idx, size, mask) > 0
+
+
+def seg_pick(idx: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
+             size: int, default: torch.Tensor) -> torch.Tensor:
+    """For each segment s, vals[n] of the first masked n with idx[n] == s,
+    else default[s]."""
+    n = idx.shape[0]
+    b = _bucket(idx, size, mask)
+    ar = torch.arange(n, device=idx.device)
+    first = torch.full((size + 1,), n, dtype=torch.long, device=idx.device)
+    first = first.scatter_reduce(0, b, ar, reduce="amin")[:size]
+    has = first < n
+    picked = vals[first.clamp(max=max(n - 1, 0))]
+    has_b = has.reshape(has.shape + (1,) * (picked.dim() - 1))
+    return torch.where(has_b, picked, default)
+
+
+def top_k(values: torch.Tensor, n: int):
+    """(values, indices) of the n largest along the last dim, ties broken
+    toward the lower index as jax.lax.top_k does (torch.topk promises no
+    order among ties)."""
+    v, i = torch.sort(values, dim=-1, descending=True, stable=True)
+    return v[..., :n], i[..., :n]
+
+
+def nonzero_static(mask: torch.Tensor, size: int, fill_value: int):
+    """Indices of the True entries of a 1-D mask in order, padded with
+    fill_value or cut to `size` (jnp.nonzero(size=, fill_value=)), without a
+    host sync."""
+    n = mask.shape[0]
+    order = torch.sort((~mask).to(torch.int8), stable=True).indices
+    if size > n:
+        order = torch.cat([order, torch.full((size - n,), n, dtype=order.dtype,
+                                             device=order.device)])
+    order = order[:size]
+    live = torch.cat([mask, mask.new_zeros(1)])[order.clamp(max=n)]
+    return torch.where(live, order, fill_value)

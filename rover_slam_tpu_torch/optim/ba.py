@@ -1,0 +1,184 @@
+"""Windowed bundle adjustment: Levenberg-Marquardt with exact landmark
+elimination (Schur complement) and a direct reduced-camera solve.
+
+Counterpart of rover_slam_tpu/optim/ba.py (`solve_ba`) with the options the
+keyframe insert uses: solver="schur", red_solver="direct", kf_major=True,
+lm_cap, two phases with a hard chi2 outlier drop between them. The `lax.scan`
+over LM steps becomes a Python loop; the JAX package's one-hot segment sums
+are native index_add here (same sums, another order). The matrix-free PCG
+solver of the global BA belongs to the loop-closing slice.
+
+kf_major is a contract on the edge list: edge rows [k*N, (k+1)*N) belong to
+window keyframe k, so pose-side sums are reshape-sums.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..geometry import lie, cameras
+from ..ops.scatterless import nonzero_static
+from . import robust
+from .blockinv import inv3, chol3, invn
+
+
+class BAProblem(NamedTuple):
+    R_cw: torch.Tensor          # [Kw,3,3]
+    t_cw: torch.Tensor          # [Kw,3]
+    pose_opt_mask: torch.Tensor  # [Kw] bool: False = fixed pose
+    lm_pos: torch.Tensor        # [Lw,3]
+    lm_opt_mask: torch.Tensor   # [Lw] bool
+    cam_params: torch.Tensor
+    e_kf: torch.Tensor          # [E] window-kf index per edge (kf-major)
+    e_lm: torch.Tensor          # [E] landmark index per edge
+    e_uv: torch.Tensor          # [E,2] measured pixels
+    e_valid: torch.Tensor       # [E] bool
+    e_info: torch.Tensor        # [E] inverse measurement variance
+
+
+class BAResult(NamedTuple):
+    R_cw: torch.Tensor
+    t_cw: torch.Tensor
+    lm_pos: torch.Tensor
+    e_chi2: torch.Tensor
+    e_inlier: torch.Tensor
+
+
+def _edge_terms(cam_kind, prob: BAProblem, R, t, X):
+    """Residuals e [E,2], Jacobians Jc [E,2,6] and Jl [E,2,3], depth [E]."""
+    Re = R[prob.e_kf.long()]
+    Xc = lie.se3_apply(Re, t[prob.e_kf.long()], X[prob.e_lm.long()])
+    e = prob.e_uv - cameras.project(cam_kind, prob.cam_params, Xc)
+    G = -cameras.project_jac(cam_kind, prob.cam_params, Xc)
+    Jc = torch.cat([G, -torch.einsum("eij,ejk->eik", G, lie.so3_hat(Xc))], dim=-1)
+    Jl = torch.einsum("eij,ejk->eik", G, Re)
+    return e, Jc, Jl, Xc[..., 2]
+
+
+def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
+             chi2_th: float = robust.CHI2_MONO, lam0: float = 1e-4,
+             phases: int = 2, lm_cap: int | None = None) -> BAResult:
+    Kw = prob.R_cw.shape[0]
+    L_full = prob.lm_pos.shape[0]
+    dev = prob.lm_pos.device
+    if lm_cap is not None and lm_cap < L_full:
+        # Compact the landmark VARIABLES; residuals still gather from the
+        # full table, edges to landmarks beyond the cap see them held fixed.
+        C = lm_cap
+        var_idx = nonzero_static(prob.lm_opt_mask, C, fill_value=L_full)
+        pad = var_idx >= L_full
+        var_c = var_idx.clamp(0, L_full - 1)
+        inv = torch.full((L_full + 1,), C, dtype=torch.long, device=dev)
+        inv[torch.where(pad, L_full, var_c)] = torch.where(
+            pad, C, torch.arange(C, device=dev))
+        e_lmv = inv[:L_full][prob.e_lm.long()]
+        lmask_c = prob.lm_opt_mask[var_c] & ~pad
+    else:
+        C = L_full
+        var_c = torch.arange(L_full, device=dev)
+        e_lmv = prob.e_lm.long()
+        lmask_c = prob.lm_opt_mask
+    Lw = C
+    pmask = prob.pose_opt_mask.float()[:, None]
+    lmask = lmask_c.float()[:, None]
+    delta2 = chi2_th
+    E = prob.e_kf.shape[0]
+    Ne = E // Kw
+    e_kf = prob.e_kf.long()
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    n = 6 * Kw
+    eye_n = torch.eye(n, device=dev)
+    ar_k = torch.arange(Kw, device=dev)
+
+    def seg_c(vals):
+        return vals.reshape((Kw, Ne) + tuple(vals.shape[1:])).sum(dim=1)
+
+    def seg_l(vals):
+        out = torch.zeros((Lw + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                          device=dev)
+        return out.index_add_(0, e_lmv, vals)[:Lw]
+
+    def seg_cross(vals):   # [E,6,3] -> [Lw,Kw,6,3]
+        out = torch.zeros((Lw + 1, Kw, 6, 3), dtype=vals.dtype, device=dev)
+        return out.index_put_((e_lmv, e_kf), vals, accumulate=True)[:Lw]
+
+    def lm_step(prob, R, t, X, lam):
+        e, Jc, Jl, depth = _edge_terms(cam_kind, prob, R, t, X)
+        chi2 = torch.sum(e * e, dim=-1) * prob.e_info
+        w = (robust.huber_weight(chi2, delta2) * prob.e_info
+             * prob.e_valid.float() * (depth > 0.05).float())
+        we = w[:, None] * e
+        g_c = seg_c(torch.einsum("eki,ek->ei", Jc, we)) * pmask
+        g_l = seg_l(torch.einsum("eki,ek->ei", Jl, we)) * lmask
+        Hcc = seg_c(torch.einsum("eki,e,ekj->eij", Jc, w, Jc))
+        Hll = seg_l(torch.einsum("eki,e,ekj->eij", Jl, w, Jl))
+        dc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
+        dl = torch.diagonal(Hll, dim1=-2, dim2=-1)
+        Hcc_d = Hcc + torch.diag_embed(lam * torch.clamp(dc, min=1e-6))
+        Hll_d = Hll + torch.diag_embed(lam * torch.clamp(dl, min=1e-6))
+        Hcc_d = torch.where(pmask[:, :, None] > 0, Hcc_d, eye6)
+        Hll_d = torch.where(lmask[:, :, None] > 0, Hll_d, eye3)
+        Pl = inv3(Hll_d + 1e-9 * eye3)
+        b_c, b_l = -g_c, -g_l
+
+        # Exact Schur elimination: with Pl = L L^T the cross term
+        # sum_l W_l Pl W_l^T is B B^T for B = [W_l L]_l.
+        Wt = seg_cross(torch.einsum("eki,e,ekj->eij", Jc, w, Jl))
+        Wt = Wt * pmask[None, :, :, None] * lmask[:, None, :, None]
+        L3 = chol3(Pl)
+        B = torch.einsum("lkab,lbc->lkac", Wt, L3)
+        Bf = B.permute(1, 2, 0, 3).reshape(n, Lw * 3)
+        S = -(Bf @ Bf.T)
+        S = S.reshape(Kw, 6, Kw, 6)
+        S[ar_k, :, ar_k, :] += Hcc_d
+        Ltb = torch.einsum("lij,li->lj", L3, b_l)
+        rhs = b_c - torch.einsum("lkac,lc->ka", B, Ltb)
+        Sm = S.reshape(n, n) + 1e-8 * eye_n
+        b_r = rhs * pmask
+        # Direct reduced-camera solve: Jacobi-equilibrate, closed-form
+        # recursive block inverse, one refinement round.
+        d_eq = torch.sqrt(torch.clamp(torch.diagonal(Sm), min=1e-12))
+        Se = Sm / d_eq[:, None] / d_eq[None, :]
+        Sei = invn(Se + 1e-7 * eye_n)
+        bv = b_r.reshape(n) / d_eq
+        y = Sei @ bv
+        y = y + Sei @ (bv - Se @ y)
+        dx_c = (y / d_eq).reshape(Kw, 6) * pmask
+        dx_l = torch.einsum("lbc,lc->lb", Pl,
+                            b_l - torch.einsum("lkab,ka->lb", Wt, dx_c)) * lmask
+
+        dR, dt = lie.se3_exp(dx_c)
+        R_new = lie.normalize_rotation(torch.einsum("kij,kjl->kil", dR, R))
+        t_new = torch.einsum("kij,kj->ki", dR, t) + dt
+        R_new = torch.where(pmask[:, :, None] > 0, R_new, R)
+        t_new = torch.where(pmask > 0, t_new, t)
+        X_new = X.index_add(0, var_c, torch.where(lmask > 0, dx_l, 0.0))
+
+        e_new, _, _, _ = _edge_terms(cam_kind, prob, R_new, t_new, X_new)
+        chi2_new = torch.sum(e_new * e_new, dim=-1) * prob.e_info
+        mask_e = prob.e_valid.float()
+        cost_old = torch.sum(robust.huber_cost(chi2, delta2) * mask_e)
+        cost_new = torch.sum(robust.huber_cost(chi2_new, delta2) * mask_e)
+        improved = cost_new < cost_old
+        R = torch.where(improved, R_new, R)
+        t = torch.where(improved, t_new, t)
+        X = torch.where(improved, X_new, X)
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0), 1e-8, 1e4)
+        return R, t, X, lam
+
+    R, t, X = prob.R_cw, prob.t_cw, prob.lm_pos
+    for phase in range(phases):
+        lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+        for _ in range(iters):
+            R, t, X, lam = lm_step(prob, R, t, X, lam)
+        if phase < phases - 1:
+            e_p, _, _, depth_p = _edge_terms(cam_kind, prob, R, t, X)
+            chi2_p = torch.sum(e_p * e_p, dim=-1) * prob.e_info
+            keep = (chi2_p <= delta2) & (depth_p > 0)
+            prob = prob._replace(e_valid=prob.e_valid & keep)
+    e, _, _, depth = _edge_terms(cam_kind, prob, R, t, X)
+    chi2 = torch.sum(e * e, dim=-1) * prob.e_info
+    inlier = (chi2 <= delta2) & (depth > 0) & prob.e_valid
+    return BAResult(R_cw=R, t_cw=t, lm_pos=X, e_chi2=chi2, e_inlier=inlier)

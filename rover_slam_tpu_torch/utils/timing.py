@@ -1,0 +1,37 @@
+"""Per-stage wall-clock instrumentation (counterpart of
+rover_slam_tpu/utils/timing.py). Stage names follow the JAX package:
+lm_track, new_kf, flags_fetch."""
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+import numpy as np
+
+
+class StageTimers:
+    def __init__(self):
+        self.samples = defaultdict(list)
+
+    @contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.samples[name].append((time.perf_counter() - t0) * 1000.0)
+
+    def add(self, name: str, ms: float):
+        self.samples[name].append(ms)
+
+    def summary(self) -> dict:
+        out = {}
+        for k, v in self.samples.items():
+            if v:
+                a = np.asarray(v)
+                out[k] = {"mean_ms": float(a.mean()),
+                          "median_ms": float(np.median(a)),
+                          "max_ms": float(a.max()),
+                          "count": len(v)}
+        return out
