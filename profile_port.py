@@ -2,21 +2,39 @@
 window of chip_smoke.py's full-width bench scene.
 
     python3 profile_port.py [--frames 60] [--window 20] [--out profile_out]
+    python3 profile_port.py --ate-spread RUNS [--frames 80] [--deterministic]
 
 Records device activity only (CUPTI kernel records; no host-op tracing, so
 the host loop runs close to its unprofiled speed). Prints the window's wall
 time, the device's busy share (the union of kernel intervals over the
-window), device time by kernel, and the host stage timers; writes the
-gzipped chrome trace and the full table under --out. Needs a CUDA device.
+window), device time by kernel (total, launches, per launch), and the host
+stage timers; writes the
+gzipped chrome trace and the full table under --out.
+
+With --ate-spread, it measures instead the run-to-run spread of path A's
+trajectory error, RUNS runs through fresh systems for each attention swapped
+into LightGlue, in turns; one line per run and a summary per attention:
+  kernel     the kernel as built (P as two bf16 terms);
+  kernel_p1  the kernel built with FLASH_P_TERMS=1 (P rounded to bf16 once,
+             the TPU kernel's arithmetic);
+  plain      masked_attention_plain (scores and P rounded to bf16, the JAX
+             package's XLA path);
+  plain_f32p chip_smoke.masked_attention_f32p (scores and P in f32).
+With --deterministic, torch takes its deterministic algorithms where it has
+them and the ops that have none are printed at the end. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import os
+import statistics
+import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -38,6 +56,45 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _single_rounding_lib():
+    """csrc/flash_attention.cu built with FLASH_P_TERMS=1 into _build/."""
+    from rover_slam_tpu_torch.ops import _build
+    src, so = _build._target("flash_attention")
+    so = so[:-len(".so")] + "-p1.so"
+    if not os.path.exists(so):
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_P_TERMS=1",
+                        "-o", so, src], check=True, capture_output=True)
+    return ctypes.CDLL(so)
+
+
+def ate_spread(cs, scene, runs: int):
+    from rover_slam_tpu_torch.models import lightglue as lgm
+    from rover_slam_tpu_torch.ops import _build, flash_attention as fa
+
+    libs = {"kernel": _build.load("flash_attention"), "kernel_p1": _single_rounding_lib()}
+    attention = {"kernel": fa.masked_attention, "kernel_p1": fa.masked_attention,
+                 "plain": fa.masked_attention_plain,
+                 "plain_f32p": cs.masked_attention_f32p}
+    ate = {name: [] for name in attention}
+    try:
+        for _ in range(runs):
+            for name, fn in attention.items():
+                lgm.masked_attention = fn
+                _build._libs["flash_attention"] = libs.get(name, libs["kernel"])
+                r = cs.run_path_a(scene)
+                ate[name].append(r["ate_cm"])
+                print(json.dumps({"attention": name, "ate_cm": r["ate_cm"],
+                                  "frac_tracked": r["frac_tracked"], "n_kf": r["n_kf"],
+                                  "n_lm": r["n_lm"], "launches": r["launches"],
+                                  "fps": r["fps"]}), flush=True)
+    finally:
+        lgm.masked_attention = fa.masked_attention
+        _build._libs["flash_attention"] = libs["kernel"]
+    for name, v in ate.items():
+        print(json.dumps({"attention": name, "runs": len(v), "ate_cm_min": min(v),
+                          "ate_cm_median": statistics.median(v), "ate_cm_max": max(v)}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -45,10 +102,18 @@ def main():
                     help="profiled frames at the end of the run")
     ap.add_argument("--out", default="profile_out",
                     help="directory for the trace and the full table")
+    ap.add_argument("--ate-spread", type=int, default=0, metavar="RUNS",
+                    help="measure path A's ATE over RUNS runs per attention instead")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --ate-spread: deterministic torch algorithms where they "
+                         "exist; prints the ops that have none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port.py: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    if args.deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # before cuBLAS starts
+        torch.use_deterministic_algorithms(True, warn_only=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
@@ -56,6 +121,21 @@ def main():
     dev = torch.device("cuda", 0)
     cs.phase_build()
     scene = cs.PathA(dev, args.frames)
+    if args.ate_spread:
+        nondet = set()
+
+        def note(message, *_a, **_k):
+            if "does not have a deterministic" in str(message):
+                nondet.add(str(message).split(" does not have")[0])
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            ate_spread(cs, scene, args.ate_spread)
+        if args.deterministic:
+            print(json.dumps({"ops_without_deterministic_algorithm": sorted(nondet)}))
+        os.system("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
+        return
     scene.warm_up()
     slam = scene.new_slam()
     start = args.frames - args.window
@@ -80,6 +160,7 @@ def main():
            "n_kf": slam.n_kf,
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()},
            "top_kernels": [{"name": k[:90], "ms": t / 1e3, "count": c,
+                            "ms_per_launch": t / 1e3 / c,
                             "share_of_device": t / max(dev_total, 1e-9)}
                            for k, t, c in rows[:20]]}
     os.makedirs(args.out, exist_ok=True)

@@ -3,8 +3,9 @@
 Each source becomes its own shared library with a plain C interface, loaded
 with ctypes (no PyTorch headers, so a build takes seconds). Libraries are
 built at first use into `_build/` beside `csrc/`, named by a hash of the
-source so an edited kernel is never served from a stale build.
-`build_all()` starts one nvcc per source, all together.
+source and of the shared headers (`csrc/*.cuh`) so an edited kernel is never
+served from a stale build.
+`build()` starts one nvcc per source, all together.
 """
 from __future__ import annotations
 
@@ -34,10 +35,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source of `name` and its library path, named by a hash of the
+    source and of every shared header in csrc/ (an edited header rebuilds)."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    h = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=SOURCES) -> dict[str, float]:

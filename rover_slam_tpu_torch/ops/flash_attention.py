@@ -10,7 +10,10 @@ same place. A row whose kv is all masked returns the mean of v over Nk (the
 JAX package's XLA path; its Pallas kernel would average over the padded kv).
 
 Routing: a CPU tensor goes to `masked_attention_plain`; a CUDA tensor goes to
-the kernel in csrc/flash_attention.cu or the call raises.
+the kernel in csrc/flash_attention.cu or the call raises. bf16 (the main
+path) runs on the tensor cores, with the softmax weights P carried as two
+bf16 terms (hi + lo) where the plain version rounds them to bf16 once; f32
+runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from . import _build
 NEG_INF = -1e9
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+# The bf16 kernel keeps one mask byte per key in shared memory.
+MAX_KV_BF16 = 131072
 
 # Kernel launches since the last reset (chip_smoke.py reads and resets it).
 attention_launches = 0
@@ -73,6 +78,10 @@ def _launch(q, k, v, mask_kv):
         raise ValueError("flash_attention: empty query or kv")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dimension must be contiguous")
+    if q.dtype == torch.bfloat16:
+        if Nk > MAX_KV_BF16:
+            raise ValueError(f"flash_attention: Nk {Nk} > {MAX_KV_BF16} (shared memory)")
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     mask_kv = mask_kv.contiguous()
     out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 13)(
@@ -90,6 +99,15 @@ def _launch(q, k, v, mask_kv):
     _build.check(status, "flash_attention")
     attention_launches += 1
     return out
+
+
+def _aligned16(x):
+    """x itself if the tensor-core route can copy its rows in 16-byte pieces
+    (16-byte aligned, b/n/h strides multiples of 8 elements), else a fresh
+    contiguous copy."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _lib():

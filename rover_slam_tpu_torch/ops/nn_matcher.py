@@ -13,7 +13,8 @@ valid1, desc1 -> desc0 with valid0) and the mutual, th_desc2, valid and
 ratio gates on top.
 
 Routing: a CPU tensor goes to `nn_reduce_plain`; a CUDA tensor goes to the
-kernel in csrc/nn_matcher.cu or the call raises.
+kernel in csrc/nn_matcher.cu (tensor cores, column axis split across blocks,
+partials merged in column order) or the call raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,12 @@ from . import _build
 BIG = 1e9
 TH_HIGH = 1.4
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+_TILE = 64         # rows and columns of one block tile in csrc/nn_matcher.cu
+MIN_BLOCKS = 128   # blocks a call aims for (132 SMs)
+MAX_DEPTH = 512    # the kernel keeps 192 rows of depth D in shared memory
+
+# Reduces since the last reset (chip_smoke.py reads and resets it); one reduce
+# is two kernel launches, the column splits and their merge.
 nn_launches = 0
 
 
@@ -53,6 +59,9 @@ def mutual_nn_match(desc0, valid0, desc1, valid1, th_desc2: float = TH_HIGH ** 2
                     ratio: float | None = None):
     """Mutual nearest-neighbour matching with the TH and Lowe-ratio gates.
     Returns (matches0 [N0] int32, -1 unmatched; best d^2 [N0])."""
+    # Both reduces round their inputs to bf16: convert each side once.
+    desc0 = desc0.to(torch.bfloat16).contiguous()
+    desc1 = desc1.to(torch.bfloat16).contiguous()
     fwd = nn_reduce(desc0, desc1, valid1)
     bwd = nn_reduce(desc1, desc0, valid0)
     return mutual_gate(fwd, bwd, valid0, valid1, th_desc2, ratio)
@@ -72,6 +81,22 @@ def mutual_gate(fwd, bwd, valid0, valid1, th_desc2: float = TH_HIGH ** 2,
     return torch.where(ok, best1, -1).to(torch.int32), d_best
 
 
+def _split_cols(N0: int, N1: int) -> int:
+    """Columns per split of the kernel's column axis: a multiple of the
+    64-column tile, as few splits as give MIN_BLOCKS blocks (64-row tiles x
+    splits), at most one split per column tile."""
+    row_tiles = -(-N0 // _TILE)
+    col_tiles = -(-N1 // _TILE)
+    splits = min(col_tiles, -(-MIN_BLOCKS // row_tiles))
+    return -(-col_tiles // splits) * _TILE
+
+
+def _aligned16(x):
+    """x itself if 16-byte aligned, else a fresh copy (the kernel copies rows
+    in 16-byte pieces)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(desc0, desc1, valid1):
     global nn_launches
     if desc0.device.type != "cuda":
@@ -87,20 +112,32 @@ def _launch(desc0, desc1, valid1):
     N1 = desc1.shape[0]
     if N0 == 0 or N1 == 0 or D == 0:
         raise ValueError("nn_matcher: empty input")
+    if D > MAX_DEPTH:
+        raise ValueError(f"nn_matcher: depth {D} > {MAX_DEPTH} (shared memory)")
     if valid1.dtype != torch.bool or tuple(valid1.shape) != (N1,):
         raise ValueError("nn_matcher: valid1 must be bool [N1]")
-    d0 = desc0.to(torch.bfloat16).contiguous()
-    d1 = desc1.to(torch.bfloat16).contiguous()
+    pad = -D % 16                      # zero depth is inert in the products
+    d0, d1 = (x.to(torch.bfloat16).contiguous() for x in (desc0, desc1))
+    if pad:
+        d0, d1 = (torch.nn.functional.pad(x, (0, pad)) for x in (d0, d1))
+    d0, d1 = _aligned16(d0), _aligned16(d1)
     v1 = valid1.contiguous()
-    best = torch.empty((N0,), dtype=torch.float32, device=desc0.device)
-    idx = torch.empty((N0,), dtype=torch.int32, device=desc0.device)
-    second = torch.empty((N0,), dtype=torch.float32, device=desc0.device)
+    split_cols = _split_cols(N0, N1)
+    S = -(-N1 // split_cols)
+    dev = desc0.device
+    best = torch.empty((N0,), dtype=torch.float32, device=dev)
+    idx = torch.empty((N0,), dtype=torch.int32, device=dev)
+    second = torch.empty((N0,), dtype=torch.float32, device=dev)
+    pbest = torch.empty((S, N0), dtype=torch.float32, device=dev)
+    pidx = torch.empty((S, N0), dtype=torch.int32, device=dev)
+    psecond = torch.empty((S, N0), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(desc0.device):
-        stream = torch.cuda.current_stream(desc0.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.nn_reduce(d0.data_ptr(), d1.data_ptr(), v1.data_ptr(),
-                               best.data_ptr(), idx.data_ptr(),
-                               second.data_ptr(), N0, N1, D, stream)
+                               best.data_ptr(), idx.data_ptr(), second.data_ptr(),
+                               pbest.data_ptr(), pidx.data_ptr(), psecond.data_ptr(),
+                               N0, N1, D + pad, split_cols, stream)
     _build.check(status, "nn_matcher")
     nn_launches += 1
     return best, idx, second
@@ -109,7 +146,6 @@ def _launch(desc0, desc1, valid1):
 def _lib():
     lib = _build.load("nn_matcher")
     fn = lib.nn_reduce
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

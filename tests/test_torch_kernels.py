@@ -113,6 +113,29 @@ def test_attention_bf16_plain_matches_xla_path():
     assert err < 0.02, err
 
 
+@pytest.mark.parametrize("Nq,Nk", [(1, 1), (65, 65), (33, 65), (65, 1), (1, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_tile_edges_match_xla_path(Nq, Nk, dtype):
+    """Shapes at the edges of the CUDA kernel's tiles (32 query rows, 64-key kv
+    tiles): Nq != Nk, one key, one query, 65 = one tile and one key; batch
+    row 1 has every key masked."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(0, 1, (2, Nq, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (2, Nk, 4, 32)).astype(np.float32) for _ in range(2))
+    mask = rng.uniform(0, 1, (2, Nk)) < 0.7
+    mask[0, 0] = True
+    mask[1] = False
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = fa.masked_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                              torch.from_numpy(mask)).float().numpy()
+    ref = np.asarray(jax_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                   jnp.asarray(mask), force_xla=True).astype(jnp.float32))
+    tol = 1e-5 if dtype == "float32" else 0.02
+    np.testing.assert_allclose(out, ref, atol=tol)
+    np.testing.assert_allclose(out[1], np.broadcast_to(v[1].mean(0), out[1].shape),
+                               atol=tol)
+
+
 def test_attention_launch_refuses_cpu_tensors():
     q, k, v, mask = (torch.from_numpy(x) for x in _qkvm(np.random.default_rng(4)))
     before = fa.attention_launches
@@ -162,3 +185,36 @@ def test_mutual_nn_match_matches_reference(interpret_mode, ref_name):
     assert (m == m_ref).mean() > 0.95
     both = (m >= 0) & (m_ref >= 0)
     assert (m[both] == m_ref[both]).mean() > 0.98
+
+
+@pytest.mark.parametrize("case", ["same_tile", "different_tiles", "all_invalid"])
+def test_nn_reduce_ties_and_invalid_match_pallas_interpret(interpret_mode, case):
+    """Exact duplicate best columns (inside one 128-column Pallas tile, and in
+    two different tiles): the lower index wins and second equals best, in the
+    port's plain version as in the Pallas kernel. With every column invalid,
+    best = second = 1e9 at index 0."""
+    rng = np.random.default_rng(7)
+    d0, d1 = unit_desc(rng, 200, 64), unit_desc(rng, 300, 64)
+    v1 = np.ones(300, bool)
+    pairs = {"same_tile": [(3, 40), (130, 131)],
+             "different_tiles": [(5, 200), (100, 290)],
+             "all_invalid": []}[case]
+    for r, (lo, hi) in enumerate(pairs):
+        d1[hi] = d1[lo]
+        d0[r] = d1[lo]
+    if case == "all_invalid":
+        v1[:] = False
+    best_j, idx_j, second_j = (np.asarray(x) for x in interpret_mode.nn_reduce(
+        jnp.asarray(d0), jnp.asarray(d1), jnp.asarray(v1)))
+    best, idx, second = (x.numpy() for x in nm.nn_reduce(
+        torch.from_numpy(d0), torch.from_numpy(d1), torch.from_numpy(v1)))
+    np.testing.assert_allclose(best, best_j, atol=1e-5)
+    np.testing.assert_allclose(second, second_j, atol=1e-5)
+    sep = (second_j - best_j) > 1e-4
+    assert (idx == idx_j)[sep].all()
+    for r, (lo, _) in enumerate(pairs):
+        assert idx[r] == idx_j[r] == lo
+        assert second[r] == best[r] and second_j[r] == best_j[r]
+    if case == "all_invalid":
+        assert (idx == 0).all() and (idx_j == 0).all()
+        assert (best == nm.BIG).all() and (second == nm.BIG).all()
