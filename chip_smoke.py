@@ -5,7 +5,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. build   — nvcc builds every CUDA kernel of the port from csrc/.
   2. parity  — each kernel against its plain PyTorch version on the card, at
-               the path's shapes and at the edges of the kernels' tilings.
+               the paths' shapes (B1 at B=1, 2, 3; B2 at the SuperPoint size
+               and at relocalization's 1024 x 16384 x 256 and 16384 x 1024 x
+               256) and at the edges of the kernels' tilings.
   3. timing  — each kernel at the main path's shapes beside its bound, its
                plain version and a library call that computes the same thing,
                timed on the device by CUDA-graph replay (cuda_time_ms).
@@ -15,10 +17,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                and, within looser limits, with the plain version.
   5. path A  — the bench scene at full width: 480x640 images -> SuperPoint
                (1024 keypoints, 256-D, shipped weights) -> LightGlue (9
-               layers, shipped weights) as the frame matcher -> monocular
-               tracking and mapping (capacities 512/1024/16384).
+               layers, shipped weights) as the frame matcher -> synchronous
+               monocular tracking and mapping (capacities 512/1024/16384),
+               80 frames.
   6. path B  — the package's default configuration (mutual-NN matching) on
-               the synthetic oracle world; ATE must stay under 3 cm.
+               the synthetic oracle world; ATE must stay under 3 cm. Two
+               tails: the kidnapped robot (global relocalization through B2
+               against the landmark table) and slot recycling on small tables
+               (culling, compaction).
+  7. path C  — bench.py's tracker: path A's scene at its full 160 frames,
+               pipeline=4 (fused track+map, flags read four frames late),
+               40 warm-up frames, flush, precompile, 120 timed frames, flush.
+               Run twice: the trajectories must agree to the bit.
+  8. path D  — relocalization at full width: a path C system to frame 60,
+               four frames on which tracking fails, then frames 20 onward
+               again: tracking must go RECENTLY_LOST and come back OK through
+               relocalization (B1 at B=3 over the newest keyframes).
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -31,11 +45,13 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 H, W, NK, D = 480, 640, 1024, 256
+RELOC_L = 16384          # landmark table of the bench map (global relocalization)
 LIGHTGLUE_LAYERS = 9
 # Published H100 SXM peaks (bf16 dense tensor rate, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
@@ -231,6 +247,10 @@ def phase_parity(dev):
         mask[1] = False
         attn_err = max(attn_err, _attention_case(
             fa, f"B=2 Nq={Nq} Nk={Nk}", q, k, v, mask, masked_row=1))
+    # Relocalization from keyframe matches runs LightGlue at B=3.
+    q, k, v, mask = attention_inputs(g, 3, NK, dev)
+    mask[2] = False
+    attn_err = max(attn_err, _attention_case(fa, f"B=3 N={NK}", q, k, v, mask, masked_row=2))
     # Strided views: q, k, v cut from one packed [B, N, 3, H, Dh] tensor.
     x = torch.randn(2, 1000, 3, 4, 64, generator=g).to(dev, torch.bfloat16)
     mask = (torch.rand(2, 1000, generator=g) > 0.2).to(dev)
@@ -240,8 +260,10 @@ def phase_parity(dev):
     nn_err = 0.0
     # Path A's SuperPoint size, path B's synthetic size, ragged ones (N1 not
     # a multiple of the split width).
+    # ... and relocalization's global match against the landmark table, in
+    # both directions (at 16384 rows one column split: the merge runs S=1).
     for (N0, N1, Dd) in ((NK, NK, D), (512, 512, 64), (200, 180, 64), (NK, 1000, D),
-                         (300, 130, 64)):
+                         (300, 130, 64), (NK, RELOC_L, D), (RELOC_L, NK, D)):
         d0, v0, d1, v1 = nn_inputs(g, N0, N1, Dd, dev)
         nn_err = max(nn_err, _nn_case(nm, f"{N0}x{N1}x{Dd}", d0, d1, v1))
         m, _ = nm.mutual_nn_match(d0, v0, d1, v1, ratio=0.8)
@@ -343,7 +365,7 @@ def phase_timing(dev):
     g = torch.Generator().manual_seed(1)
     rows = {}
     saved = (fa.attention_launches, nm.nn_launches)
-    for B in (1, 2):
+    for B in (1, 2, 3):
         q, k, v, mask = attention_inputs(g, B, NK, dev)
         qs = fa._scale_q(q)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -361,7 +383,7 @@ def phase_timing(dev):
             f"(launch alone {t_launch:.4f}), plain {tp:.4f} ms, sdpa {tl:.4f} ms, "
             f"bound {bnd:.5f} ms ({by})")
         rows[f"attention_B{B}"] = (t, tp, tl, bnd, by)
-    for (N0, N1, Dd) in ((512, 512, 64), (NK, NK, D)):
+    for (N0, N1, Dd) in ((512, 512, 64), (NK, NK, D), (NK, RELOC_L, D)):
         d0, _, d1, v1 = nn_inputs(g, N0, N1, Dd, dev)
         b0, b1 = d0.to(torch.bfloat16), d1.to(torch.bfloat16)
         t = cuda_time_ms(lambda: nm.nn_reduce(b0, b1, v1))
@@ -380,6 +402,16 @@ def phase_timing(dev):
 
 
 # ---------------------------------------------------------------------------
+def trajectory_digest(slam) -> str:
+    """sha256 of the final trajectory's times and poses: two runs that agree
+    to the bit give the same digest."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in slam.get_trajectory():
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
 def _ate_cm(slam, R_gt, t_gt, times):
     from rover_slam_tpu_torch.utils import trajectory
     est_t, est_R, est_tcw = slam.get_trajectory()
@@ -396,12 +428,24 @@ def _ate_cm(slam, R_gt, t_gt, times):
     return trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0, pairs
 
 
+def _reset_launches():
+    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
+    fa.attention_launches = 0
+    fa.launches_by_batch.clear()
+    nm.nn_launches = 0
+
+
+def _launches() -> dict:
+    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
+    return {"attention": fa.attention_launches, "nn": nm.nn_launches,
+            "attention_by_batch": dict(fa.launches_by_batch)}
+
+
 class PathA:
     """The bench scene at full width (bench.py's configuration with loop
-    closing off and the synchronous tracker), cut to n_frames at the bench's
-    per-frame motion: the scene, the shipped-weight front end, and a factory
-    for fresh SLAM systems."""
-    K, L = 512, 16384
+    closing off), cut to n_frames at the bench's per-frame motion: the scene,
+    the shipped-weight front end, and a factory for fresh SLAM systems."""
+    K, L = 512, RELOC_L
 
     def __init__(self, dev, n_frames: int):
         from rover_slam_tpu_torch.models.lightglue import (LightGlueFrameMatcher,
@@ -414,20 +458,18 @@ class PathA:
         self.dev = dev
         fx = 458.0
         self.cam = np.asarray([fx, fx, W / 2.0, H / 2.0, 0, 0, 0, 0], np.float32)
-        world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0,
-                                           image_hw=(H, W), layout="ring",
-                                           ring_orbit_radius=5.0)
-        world = world._replace(cam_params=self.cam)
+        self.world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0,
+                                                image_hw=(H, W), layout="ring",
+                                                ring_orbit_radius=5.0)
+        self.world = self.world._replace(cam_params=self.cam)
         # bench.py orbits 1.1 revolutions over 160 frames; keep its per-frame
         # motion over the cut sequence.
         self.R_gt, self.t_gt, self.times = synthetic.orbit_trajectory(
             n_frames=n_frames, orbit_radius=5.0, revs=1.1 * n_frames / 160.0,
             dt=1.0 / 30.0)
         t_r = time.perf_counter()
-        self.imgs = [torch.from_numpy(synthetic.render_photo_frame(
-            world, self.R_gt[i], self.t_gt[i]).astype(np.float32) / 255.0)[None].to(dev)
-            for i in range(n_frames)]
-        log(f"# path A: rendered {n_frames} frames in {time.perf_counter() - t_r:.1f} s")
+        self.imgs = [self.render(self.R_gt[i], self.t_gt[i]) for i in range(n_frames)]
+        log(f"# scene: rendered {n_frames} frames in {time.perf_counter() - t_r:.1f} s")
         assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "rover_slam_tpu", "assets")
         sp = load_flat_npz(os.path.join(assets, "superpoint_synth.npz"))
@@ -440,23 +482,31 @@ class PathA:
                                    min_init_matches=40, min_inliers_local_map=20)
         self.camt = torch.as_tensor(self.cam, device=dev)
 
-    def new_slam(self):
+    def render(self, R, t):
+        from rover_slam_tpu_torch.utils import synthetic
+        img = synthetic.render_photo_frame(self.world, R, t).astype(np.float32) / 255.0
+        return torch.from_numpy(img)[None].to(self.dev)
+
+    def new_slam(self, pipeline=0):
         from rover_slam_tpu_torch.slam.system import MonocularSLAM
         return MonocularSLAM(self.cam, config=self.cfg, map_capacity=(self.K, NK, self.L),
-                             desc_dim=D, pipeline=0, enable_loop_closing=False,
+                             desc_dim=D, pipeline=pipeline, enable_loop_closing=False,
                              matcher=self.matcher, device=self.dev)
 
-    def step(self, slam, i):
+    def step_image(self, slam, img, t):
         """One frame through the user's entry points: SuperPoint, unproject,
-        track_frame (LightGlue runs inside as the matcher)."""
+        track_frame (LightGlue runs inside as the matcher), then a device
+        synchronize (the frame's latency is what a user feels)."""
         from rover_slam_tpu_torch.geometry import cameras
-        out = self.ext(self.imgs[i])
+        out = self.ext(img)
         kpts = out["keypoints"][0]
         rays = cameras.unproject(cameras.PINHOLE, self.camt, kpts)
-        info = slam.track_frame(kpts, rays, out["descriptors"][0], out["valid"][0],
-                                float(self.times[i]))
+        info = slam.track_frame(kpts, rays, out["descriptors"][0], out["valid"][0], float(t))
         _sync(self.dev)
         return info
+
+    def step(self, slam, i):
+        return self.step_image(slam, self.imgs[i], self.times[i])
 
     def warm_up(self, n: int = 2):
         """Allocator, cuDNN and cuBLAS plans, on a throw-away system."""
@@ -465,10 +515,15 @@ class PathA:
             self.step(warm, i)
 
 
+def _tracked(slam) -> int:
+    """Frames logged as OK (in pipeline mode the state at each frame's finish)."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    return sum(e[3] == T.OK for e in slam.trajectory)
+
+
 def run_path_a(scene):
-    """Every frame of the scene through a fresh system; the result line,
-    with the kernel launches counted from 0 over the run."""
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
+    """Every frame of the scene through a fresh synchronous system; the
+    result line, with the kernel launches counted from 0 over the run."""
     from rover_slam_tpu_torch.slam import tracking as T
 
     n_frames = len(scene.imgs)
@@ -476,8 +531,7 @@ def run_path_a(scene):
     slam = scene.new_slam()
     R_gt, t_gt, times = scene.R_gt, scene.t_gt, scene.times
 
-    fa.attention_launches = 0
-    nm.nn_launches = 0
+    _reset_launches()
     frame_ms, states = [], []
     t0 = time.perf_counter()
     for i in range(n_frames):
@@ -485,7 +539,7 @@ def run_path_a(scene):
         states.append(scene.step(slam, i)["state"])
         frame_ms.append((time.perf_counter() - t1) * 1000.0)
     wall = time.perf_counter() - t0
-    launches = {"attention": fa.attention_launches, "nn": nm.nn_launches}
+    launches = _launches()
     frame_ms = np.asarray(frame_ms)
     n_tracked = sum(s == T.OK for s in states)
     ate_cm, pairs = _ate_cm(slam, R_gt, t_gt, times)
@@ -497,6 +551,7 @@ def run_path_a(scene):
            "ate_cm": ate_cm, "frac_tracked": n_tracked / n_frames,
            "frames_tracked": n_tracked,
            "n_kf": slam.n_kf, "n_lm": n_lm, "launches": launches,
+           "trajectory_digest": trajectory_digest(slam),
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
     log("# path A:", json.dumps(res))
     return res
@@ -517,28 +572,34 @@ def phase_path_a(scene):
     return res
 
 
+def _path_b_frames(n_frames, seed=0):
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.make_world(n_landmarks=3000, desc_dim=64, seed=seed)
+    gt = synthetic.forward_trajectory(n_frames=n_frames, dt=0.1, speed=0.6, yaw_rate=0.04)
+    frames = synthetic.render_sequence(world, *gt, n_kpts=512, pix_noise=0.4,
+                                       desc_noise=0.05)
+    return world, frames, gt
+
+
+def _feed(slam, frames, t_shift=0.0):
+    return [slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time + t_shift)["state"]
+            for f in frames]
+
+
 def phase_path_b(dev):
     """The package default (matcher=None -> mutual-NN on kernel B2) on the
     synthetic oracle world of tests/test_e2e_mono.py."""
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
     from rover_slam_tpu_torch.slam import tracking as T
     from rover_slam_tpu_torch.slam.system import MonocularSLAM
-    from rover_slam_tpu_torch.utils import synthetic
-    world = synthetic.make_world(n_landmarks=3000, desc_dim=64, seed=0)
-    R_gt, t_gt, times = synthetic.forward_trajectory(n_frames=40, dt=0.1, speed=0.6,
-                                                     yaw_rate=0.04)
-    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=512,
-                                       pix_noise=0.4, desc_noise=0.05)
+    world, frames, (R_gt, t_gt, times) = _path_b_frames(40)
     slam = MonocularSLAM(world.cam_params, map_capacity=(64, 512, 8192), desc_dim=64,
                          device=dev)
-    fa.attention_launches = 0
-    nm.nn_launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
-    states = [slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time)["state"]
-              for f in frames]
+    states = _feed(slam, frames)
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches = {"attention": fa.attention_launches, "nn": nm.nn_launches}
+    launches = _launches()
     ate_cm, _ = _ate_cm(slam, R_gt, t_gt, times)
     first_ok = states.index(T.OK) if T.OK in states else len(states)
     res = {"frames": len(frames), "fps": len(frames) / wall, "ate_cm": ate_cm,
@@ -551,6 +612,197 @@ def phase_path_b(dev):
         raise AssertionError(f"path B: ATE {ate_cm:.3f} cm >= 3 cm")
     if not launches["nn"] > 0:
         raise AssertionError("path B: the NN kernel was never launched")
+    return res
+
+
+def garbage_frame(rng, t, n_kpts=512, dim=64):
+    """Random keypoints and descriptors: a frame no map can match."""
+    from types import SimpleNamespace
+    kpts = rng.uniform(20, 400, (n_kpts, 2)).astype(np.float32)
+    desc = rng.normal(size=(n_kpts, dim)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    rays = np.concatenate([kpts * 0.001, np.ones((n_kpts, 1))], 1).astype(np.float32)
+    return SimpleNamespace(kpts=kpts, rays=rays, desc=desc, valid=np.ones(n_kpts, bool),
+                           time=t)
+
+
+def phase_path_b_kidnap(dev):
+    """tests/test_e2e_mono.py's kidnapped robot on path B's world: 20 frames,
+    4 unmatchable ones, then frame 10's view again. Tracking must go
+    RECENTLY_LOST, attempt the global relocalization (B2 at 512 x 8192 x 64
+    against the landmark table, both directions) on the lost frames, and
+    come back OK at frame 10's logged position within 5 cm (as in the JAX
+    package, the returning view is recovered by the tracker's reference
+    keyframe match before a relocalization is due)."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    world, frames, _ = _path_b_frames(30)
+    slam = MonocularSLAM(world.cam_params, map_capacity=(64, 512, 8192), desc_dim=64,
+                         device=dev)
+    _reset_launches()
+    _feed(slam, frames[:20])
+    rng = np.random.default_rng(99)
+    lost = _feed(slam, [garbage_frame(rng, 2.0 + 0.1 * k) for k in range(4)])
+    nn_before = _launches()["nn"]
+    f = frames[10]
+    info = slam.track_frame(f.kpts, f.rays, f.desc, f.valid, 3.0)
+    _sync(dev)
+    launches = _launches()
+    entry = next(e for e in slam.trajectory if abs(e[0] - f.time) < 1e-6)
+    R10, t10 = (x.cpu().numpy() for x in entry[1:3])
+    R, t = (x.cpu().numpy() for x in info["pose"])
+    dist = float(np.linalg.norm(-R.T @ t + R10.T @ t10))
+    res = {"states_lost": lost, "state": info["state"], "reloc_attempts": slam.reloc_attempts,
+           "reloc_successes": slam.reloc_successes, "dist_to_frame10": dist,
+           "nn_reduces_last_frame": launches["nn"] - nn_before, "launches": launches}
+    log("# path B kidnap:", json.dumps(res))
+    if not (lost[-1] == T.RECENTLY_LOST and info["state"] == T.OK
+            and slam.reloc_attempts >= 1 and dist < 0.05):
+        raise AssertionError("path B kidnap: not back at frame 10's pose")
+    return res
+
+
+def phase_path_b_lifecycle(dev):
+    """Slot recycling (tests/test_torch_system_compaction.py's scene): the
+    lifecycle tests' tracker settings (cull every 3 keyframes, a keyframe at
+    least every 4 frames) on tables of 16 keyframes and 2048 landmarks, 64
+    frames of path B's world. The tables must be compacted at least twice,
+    more keyframes created than the table holds, no landmark dropped, and
+    tracking OK after init."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    world, frames, (R_gt, t_gt, times) = _path_b_frames(64)
+    cfg = T.TrackerConfig(kf_cull_every=3, kf_max_interval=4, min_init_matches=50,
+                          min_inliers_local_map=12)
+    K = 16
+    slam = MonocularSLAM(world.cam_params, config=cfg, map_capacity=(K, 512, 2048),
+                         desc_dim=64, device=dev)
+    _reset_launches()
+    states = _feed(slam, frames)
+    ate_cm, _ = _ate_cm(slam, R_gt, t_gt, times)
+    first_ok = states.index(T.OK) if T.OK in states else len(states)
+    res = {"compactions": slam.compactions, "keyframes_created": slam._next_uid,
+           "n_kf": slam.n_kf, "culled_redirects": len(slam._kf_redirect),
+           "lm_dropped": int(slam.state.lm_dropped), "n_lm": int(slam.state.n_lm),
+           "all_ok_after_init": all(s == T.OK for s in states[first_ok:]),
+           "ate_cm": ate_cm, "launches": _launches()}
+    log("# path B lifecycle:", json.dumps(res))
+    if not (res["compactions"] >= 2 and res["lm_dropped"] == 0 and res["all_ok_after_init"]
+            and slam._next_uid > K and math.isfinite(ate_cm)):
+        raise AssertionError("path B lifecycle: tables not recycled cleanly")
+    return res
+
+
+def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4):
+    """bench.py's loop over the scene: a fresh pipeline=4 system, 40 warm-up
+    frames, flush, precompile, the timed frames, flush. fps and frame times
+    over the timed frames; with count_syncs, the implicit host syncs of the
+    timed frames counted by torch.cuda.set_sync_debug_mode("warn") (the
+    deferred flags reads, one event wait per frame, are not among them)."""
+    n_frames = len(scene.imgs)
+    scene.warm_up()
+    slam = scene.new_slam(pipeline=pipeline)
+    _reset_launches()
+    for i in range(n_warm):
+        scene.step(slam, i)
+    slam.flush()
+    slam.precompile()
+    frame_ms = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for i in range(n_warm, n_frames):
+                t1 = time.perf_counter()
+                scene.step(slam, i)
+                frame_ms.append((time.perf_counter() - t1) * 1000.0)
+            slam.flush()
+            _sync(scene.dev)
+            wall = time.perf_counter() - t0
+        finally:
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    launches = _launches()
+    frame_ms = np.asarray(frame_ms)
+    n_timed = n_frames - n_warm
+    n_tracked = _tracked(slam)
+    ate_cm, _ = _ate_cm(slam, scene.R_gt, scene.t_gt, scene.times)
+    res = {"frames": n_frames, "frames_timed": n_timed, "fps": n_timed / wall,
+           "frame_ms_median": float(np.median(frame_ms)),
+           "frame_ms_p95": float(np.percentile(frame_ms, 95)),
+           "frame_ms_max": float(frame_ms.max()),
+           "ate_cm": ate_cm, "frac_tracked": n_tracked / n_frames, "frames_tracked": n_tracked,
+           "n_kf": slam.n_kf, "n_lm": int(slam.state.n_lm),
+           "host_syncs_per_frame": syncs / n_timed if count_syncs else None,
+           "launches": launches, "trajectory_digest": trajectory_digest(slam),
+           "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
+    log("# path C:", json.dumps(res))
+    return res
+
+
+def phase_path_c(scene):
+    """Path C twice; C2: the two trajectories agree to the bit."""
+    runs = [run_path_c(scene, count_syncs=True), run_path_c(scene, count_syncs=False)]
+    for r in runs:
+        if not r["frac_tracked"] >= 0.9:
+            raise AssertionError(f"path C tracked only {r['frac_tracked']:.2f} of frames")
+        if not r["launches"]["attention"] >= 36 * r["frames_tracked"]:
+            raise AssertionError(f"path C: {r['launches']['attention']} attention launches "
+                                 f"for {r['frames_tracked']} tracked frames")
+        if not math.isfinite(r["ate_cm"]):
+            raise AssertionError("path C: trajectory not finite")
+    if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
+        raise AssertionError("path C: two runs gave different trajectories")
+    return runs
+
+
+def phase_path_d(scene, lost_frame: int = 60, replay_from: int = 20, replay_to: int = 100):
+    """Relocalization at full width on a fresh path C system: frames up to
+    lost_frame, four frames on which tracking fails (a uniform grey image,
+    or the scene seen from far outside the ring if SuperPoint finds points on
+    the grey), then frames replay_from.. again with the clock still running
+    at 1/30 s. Tracking must go RECENTLY_LOST and back to OK through
+    relocalization (PnP over one B=3 LightGlue batch against the newest
+    keyframes)."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    slam = scene.new_slam(pipeline=4)
+    _reset_launches()
+    for i in range(lost_frame + 1):
+        scene.step(slam, i)
+    grey = torch.full_like(scene.imgs[0], 0.5)
+    n_kp_grey = int(scene.ext(grey)["valid"][0].sum())
+    if n_kp_grey < 20:
+        lost_img, lost_kind = grey, "uniform grey"
+    else:
+        R = scene.R_gt[lost_frame]
+        C = -R.T @ scene.t_gt[lost_frame]
+        lost_img, lost_kind = scene.render(R, -R @ (6.0 * C)), "far outside the ring"
+    t = float(scene.times[lost_frame])
+    states = []
+    for _ in range(4):
+        t += 1.0 / 30.0
+        states.append(scene.step_image(slam, lost_img, t)["state"])
+    for i in range(replay_from, replay_to):
+        t += 1.0 / 30.0
+        states.append(scene.step_image(slam, scene.imgs[i], t)["state"])
+    slam.flush()
+    logged = [e[3] for e in slam.trajectory]
+    first_lost = logged.index(T.RECENTLY_LOST) if T.RECENTLY_LOST in logged else None
+    back_ok = first_lost is not None and T.OK in logged[first_lost:]
+    launches = _launches()
+    res = {"lost_input": lost_kind, "grey_keypoints": n_kp_grey,
+           "reloc_attempts": slam.reloc_attempts, "reloc_successes": slam.reloc_successes,
+           "attention_launches_b3": launches["attention_by_batch"].get(3, 0),
+           "went_recently_lost": first_lost is not None, "back_to_ok": back_ok,
+           "final_state": slam.tracking_state,
+           "frames_ok_after_loss": sum(s == T.OK for s in logged[first_lost or 0:]),
+           "launches": launches}
+    log("# path D:", json.dumps(res))
+    if not (back_ok and slam.reloc_successes >= 1 and res["attention_launches_b3"] > 0):
+        raise AssertionError("path D: no relocalization back to OK")
     return res
 
 
@@ -567,23 +819,31 @@ def main():
     phase_build()
     attn_err, nn_err = phase_parity(dev)
     timing = phase_timing(dev)
-    scene = PathA(dev, n_frames=80)
-    phase_lightglue(scene)
-    path_a = phase_path_a(scene)
-    path_b = phase_path_b(dev)
+    scene_a = PathA(dev, n_frames=80)
+    phase_lightglue(scene_a)
+    paths = {"A": phase_path_a(scene_a)}
+    del scene_a
+    paths["B"] = phase_path_b(dev)
+    paths["B kidnap"] = phase_path_b_kidnap(dev)
+    paths["B lifecycle"] = phase_path_b_lifecycle(dev)
+    scene_c = PathA(dev, n_frames=160)
+    paths["C run 1"], paths["C run 2"] = phase_path_c(scene_c)
+    paths["D"] = phase_path_d(scene_c)
+    launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
+    log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 
     ta, tn = timing["attention_B1"], timing["nn_512x512x64"]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "rover_slam_tpu_torch/csrc/flash_attention.cu",
          "replaces": "rover_slam_tpu/ops/pallas_attention.py:31",
-         "launches": path_a["launches"]["attention"] + path_b["launches"]["attention"],
+         "launches": launches["attention"],
          "max_abs_err": attn_err, "ms": ta[0], "plain_ms": ta[1], "bound_ms": ta[3],
          "bound_by": ta[4], "library_ms": ta[2]},
         {"name": "nn_matcher", "route": "cuda",
          "source": "rover_slam_tpu_torch/csrc/nn_matcher.cu",
          "replaces": "rover_slam_tpu/ops/pallas_matcher.py:33",
-         "launches": path_a["launches"]["nn"] + path_b["launches"]["nn"],
+         "launches": launches["nn"],
          "max_abs_err": nn_err, "ms": tn[0], "plain_ms": tn[1], "bound_ms": tn[3],
          "bound_by": tn[4], "library_ms": tn[2]},
     ]

@@ -1,0 +1,241 @@
+"""The JAX package and the PyTorch port, frame by frame, on the bench scene at
+full width, both on the CPU.
+
+    python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--out rows.json]
+
+The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
+480x640 frames rendered once with numpy at the bench's per-frame motion
+(revs = 1.1 * frames / 160), capacities 512 / 1024 / 16384, 256-D
+descriptors. Each frame goes through two systems, each with its own shipped
+SuperPoint (1024 keypoints) and 9-layer LightGlue as the frame matcher,
+loop closing off, bench.py's TrackerConfig, pipeline=0 (or --pipeline K,
+with bench.py's flush after 40 frames: chip_smoke.py's path C at
+--frames 160):
+  jax    rover_slam_tpu's MonocularSLAM (LightGlue's attention on the XLA
+         path, which rounds the scores and the softmax weights to bf16 at
+         1024 keypoints);
+  torch  rover_slam_tpu_torch's MonocularSLAM(device="cpu"), whose
+         LightGlue takes masked_attention_plain on the CPU (the same
+         rounding).
+One line per frame (in pipeline mode the state, inliers and pose are those
+of the frame finished then, K frames back): keypoints both extractors found (same pixel), LightGlue
+match counts, agreement of the frame matches over the previous frame's
+keypoints matched by either side (a match agrees when both sides pick the
+same pixel in the current frame), tracking states, n_inliers, keyframe
+counts, and the distance between the two systems' camera centres (each in
+its own map frame: first keyframe at the origin, median depth 1). At the end
+each system's ATE (scale-aligned Horn, evaluate_ate_scale's protocol). A
+comparison script, not part of the port: it imports both packages.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import numpy as np  # noqa: E402
+
+H, W, NK, D = 480, 640, 1024, 256
+CAPACITY = (512, NK, 16384)
+PIX = 0.5          # two keypoints are the same when closer than this (px)
+
+
+class Recorder:
+    """Wraps a frame matcher and keeps the frame-to-frame call's inputs and
+    matches (triangulation's batched calls pass through unrecorded)."""
+
+    def __init__(self, matcher):
+        self.matcher = matcher
+        self.last = None
+
+    def __call__(self, kpts0, desc0, valid0, kpts1, desc1, valid1):
+        m = self.matcher(kpts0, desc0, valid0, kpts1, desc1, valid1)
+        self.last = (np.asarray(kpts0), np.asarray(kpts1), np.asarray(m))
+        return m
+
+    def match_batch(self, *args):
+        return self.matcher.match_batch(*args)
+
+
+def _same_pixel(a, b):
+    """For each row of a [n, 2], the index of the row of b at the same pixel
+    (within PIX), else -1."""
+    d = np.linalg.norm(a[:, None, :] - b[None, :, :], axis=-1)
+    j = d.argmin(axis=1)
+    return np.where(d[np.arange(len(a)), j] < PIX, j, -1)
+
+
+def match_agreement(rec_j, rec_t):
+    """Share of the previous frame's keypoints matched by either side whose
+    matches land on the same pixel; None before both sides matched."""
+    if rec_j is None or rec_t is None:
+        return None
+    k0j, k1j, mj = rec_j
+    k0t, k1t, mt = rec_t
+    to_t = _same_pixel(k0j, k0t)
+    agree = total = 0
+    for i in range(len(k0j)):
+        it = to_t[i]
+        a = mj[i]
+        b = mt[it] if it >= 0 else -1
+        if a < 0 and b < 0:
+            continue
+        total += 1
+        agree += (a >= 0 and b >= 0
+                  and np.linalg.norm(k1j[a] - k1t[b]) < PIX)
+    return agree / total if total else None
+
+
+def centre(pose):
+    R, t = (np.asarray(x, np.float64) for x in pose)
+    return -R.T @ t
+
+
+def ate_cm(slam, R_gt, t_gt, times, trajectory):
+    est_t, est_R, est_tcw = slam.get_trajectory()
+    est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
+    fin = np.isfinite(est_pos).all(axis=1)
+    gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(times))])
+    pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times) if fin[i]]
+    e = np.stack([est_pos[i] for i, _ in pairs])
+    g = np.stack([gt_pos[j] for _, j in pairs])
+    return float(trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0), len(pairs)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=80)
+    ap.add_argument("--pipeline", type=int, default=0, metavar="K")
+    ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from rover_slam_tpu.geometry import cameras as jcam
+    from rover_slam_tpu.models.lightglue import (LightGlueFrameMatcher as JLGF,
+                                                 LightGlueMatcher as JLG)
+    from rover_slam_tpu.models.superpoint import SuperPointExtractor as JSP
+    from rover_slam_tpu.slam import tracking as jT
+    from rover_slam_tpu.slam.system import MonocularSLAM as JSLAM
+    from rover_slam_tpu.training import checkpoints as ckpt
+    from rover_slam_tpu.utils import trajectory
+    from rover_slam_tpu_torch.geometry import cameras as tcam
+    from rover_slam_tpu_torch.models.lightglue import (LightGlueFrameMatcher as TLGF,
+                                                       LightGlueMatcher as TLG)
+    from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor as TSP
+    from rover_slam_tpu_torch.models.weights import load_flat_npz
+    from rover_slam_tpu_torch.slam import tracking as tT
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM as TSLAM
+    from rover_slam_tpu_torch.utils import synthetic
+
+    assert jax.default_backend() == "cpu"
+    F = args.frames
+    fx = 458.0
+    cam = np.asarray([fx, fx, W / 2.0, H / 2.0, 0, 0, 0, 0], np.float32)
+    world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0, image_hw=(H, W),
+                                       layout="ring", ring_orbit_radius=5.0)
+    world = world._replace(cam_params=cam)
+    R_gt, t_gt, times = synthetic.orbit_trajectory(
+        n_frames=F, orbit_radius=5.0, revs=1.1 * F / 160.0, dt=1.0 / 30.0)
+    t0 = time.perf_counter()
+    imgs = [synthetic.render_photo_frame(world, R_gt[i], t_gt[i]).astype(np.float32) / 255.0
+            for i in range(F)]
+    print(f"# rendered {F} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "rover_slam_tpu", "assets")
+    sp_path = os.path.join(assets, "superpoint_synth.npz")
+    lg_path = os.path.join(assets, "lightglue_synth.npz")
+    cfg_kw = dict(image_hw=(H, W), local_map_only=True, kf_cull_every=0,
+                  min_init_matches=40, min_inliers_local_map=20)
+
+    j_ext = JSP(params=ckpt.load_params(sp_path), image_hw=(H, W), max_keypoints=NK)
+    j_rec = Recorder(JLGF(JLG(params=ckpt.load_params(lg_path), num_kpts=NK, num_layers=9,
+                              threshold=0.1), (H, W)))
+    j_slam = JSLAM(cam, config=jT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
+                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=False, matcher=j_rec)
+    j_cam = jnp.asarray(cam)
+
+    t_ext = TSP(params=load_flat_npz(sp_path), max_keypoints=NK, device="cpu")
+    t_rec = Recorder(TLGF(TLG(params=load_flat_npz(lg_path), num_layers=9, threshold=0.1,
+                              device="cpu"), (H, W)))
+    t_slam = TSLAM(cam, config=tT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
+                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=False, matcher=t_rec,
+                   device="cpu")
+    t_cam = torch.from_numpy(cam)
+
+    rows = []
+    secs = {"jax": 0.0, "torch": 0.0}
+    for i in range(F):
+        j_rec.last = t_rec.last = None
+        t1 = time.perf_counter()
+        out = j_ext(jnp.asarray(imgs[i][None]))
+        kj = out["keypoints"][0]
+        info_j = j_slam.track_frame(kj, jcam.unproject_jit(jcam.PINHOLE, j_cam, kj),
+                                    out["descriptors"][0], out["valid"][0], float(times[i]))
+        kj = np.asarray(kj)
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            out = t_ext(torch.from_numpy(imgs[i][None]))
+            kt = out["keypoints"][0]
+            info_t = t_slam.track_frame(kt, tcam.unproject(tcam.PINHOLE, t_cam, kt),
+                                        out["descriptors"][0], out["valid"][0],
+                                        float(times[i]))
+        kt = kt.numpy()
+        t3 = time.perf_counter()
+        secs["jax"] += t2 - t1
+        secs["torch"] += t3 - t2
+        dist = None
+        if "pose" in info_j and "pose" in info_t:
+            dist = float(np.linalg.norm(centre(info_j["pose"]) - centre(info_t["pose"])))
+        row = {"frame": i,
+               "same_kpts": int((_same_pixel(kj, kt) >= 0).sum()),
+               "matches": [None if r.last is None else int((r.last[2] >= 0).sum())
+                           for r in (j_rec, t_rec)],
+               "match_agree": match_agreement(j_rec.last, t_rec.last),
+               "state": [int(info_j["state"]), int(info_t["state"])],
+               "n_inliers": [info_j.get("n_inliers"), info_t.get("n_inliers")],
+               "n_kf": [int(j_slam.n_kf), int(t_slam.n_kf)],
+               "centre_dist": dist,
+               "s": [round(t2 - t1, 2), round(t3 - t2, 2)]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        if args.pipeline and i == 39:
+            j_slam.flush()
+            t_slam.flush()
+
+    ate = {"jax": ate_cm(j_slam, R_gt, t_gt, times, trajectory),
+           "torch": ate_cm(t_slam, R_gt, t_gt, times, trajectory)}
+    agree = [r["match_agree"] for r in rows if r["match_agree"] is not None]
+    dists = [r["centre_dist"] for r in rows if r["centre_dist"] is not None]
+    summary = {
+        "frames": F,
+        "ate_cm": {k: v[0] for k, v in ate.items()},
+        "frames_scored": {k: v[1] for k, v in ate.items()},
+        "frames_ok": {"jax": sum(r["state"][0] == jT.OK for r in rows),
+                      "torch": sum(r["state"][1] == tT.OK for r in rows)},
+        "states_equal": sum(r["state"][0] == r["state"][1] for r in rows),
+        "n_kf": [int(j_slam.n_kf), int(t_slam.n_kf)],
+        "n_lm": [int(j_slam.state.n_lm), int(t_slam.state.n_lm)],
+        "match_agree_median": float(np.median(agree)) if agree else None,
+        "match_agree_min": float(np.min(agree)) if agree else None,
+        "centre_dist_median": float(np.median(dists)) if dists else None,
+        "centre_dist_max": float(np.max(dists)) if dists else None,
+        "first_frame_centre_dist_over_0.01": next(
+            (r["frame"] for r in rows
+             if r["centre_dist"] is not None and r["centre_dist"] > 0.01), None),
+        "seconds": secs}
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"rows": rows, "summary": summary}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

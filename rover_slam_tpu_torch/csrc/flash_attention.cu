@@ -13,13 +13,14 @@
 //  - bf16 (the main path): flash_tc_kernel, FA2-style on the tensor cores.
 //  - f32 (tests only): flash_kernel, the first CUDA-core version, unchanged.
 //
-// What bounds it on this card: at the path's shapes (B <= 2, N = 1024, H = 4,
-// Dh = 64) one call reads ~1.5 MB and does ~1-2 GFLOP, about 1-2 us at the
-// tensor-core peak. The call is far too small for that: B * H * N / 16 =
-// 256 warp-sized row groups at B = 1, so latency (each warp's chain of
-// mma.sync, exp2 and shared-memory loads per kv tile) and occupancy set the
-// pace, not the tensor-core rate. That is also why it uses mma.sync and not
-// wgmma: a 64-row warpgroup tile would quarter the number of blocks.
+// What bounds it on this card: at the path's shapes (B <= 3, N = 1024, H = 4,
+// Dh = 64; B = 3 only in relocalization) one call reads ~1.5-4.5 MB and does
+// ~1-3 GFLOP, about 1-3 us at the tensor-core peak. The call is far too small
+// for that: B * H * N / 16 = 256 warp-sized row groups at B = 1, so latency
+// (each warp's chain of mma.sync, exp2 and shared-memory loads per kv tile)
+// and occupancy set the pace, not the tensor-core rate. That is also why it
+// uses mma.sync and not wgmma: a 64-row warpgroup tile would quarter the
+// number of blocks. The time grows about linearly with B (PERF.md).
 //
 // Design of the bf16 route: a block owns 32 query rows of one (batch, head),
 // so B = 1, N = 1024 makes 128 blocks. Its four warps are two row groups of
@@ -43,10 +44,10 @@
 // bf16 terms, hi = bf16(p) and lo = bf16(p - hi), so it keeps ~16
 // significant bits. The TPU kernel (pallas_attention.py:54) and the plain
 // version round P to bf16 once. With one rounding, the full-width path A's
-// trajectory error read over 5 cm in most runs (two terms: in few); why the
-// path is that sensitive to the attention's rounding is an open fault in
-// ROADMAP.md section C (readings in PERF.md). The second term costs about a
-// fifth of the kernel time. FLASH_P_TERMS=1 builds the TPU's single
+// trajectory error read over 5 cm in most runs (two terms: in few). The JAX
+// package itself reads over 5 cm there at the single rounding, so that
+// sensitivity is the reference's own (ROADMAP.md section C, readings in
+// PERF.md). The second term costs about a fifth of the kernel time. FLASH_P_TERMS=1 builds the TPU's single
 // rounding (profile_port.py --ate-spread measures both).
 #ifndef FLASH_P_TERMS
 #define FLASH_P_TERMS 2

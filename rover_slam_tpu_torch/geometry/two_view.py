@@ -195,13 +195,16 @@ def _score_motion(R, t, x1, x2, mask, sigma2, min_parallax_cos=0.99998):
     return n_good, Xw, ok, cos_sorted[idx50]
 
 
-def draw_samples(mask: torch.Tensor, n_hyp: int, generator: torch.Generator):
-    """[n_hyp, 8] indices drawn with replacement, uniformly among the valid
-    matches (the JAX package's weighted jax.random.choice)."""
-    p = mask.float()
-    draws = torch.multinomial(p.cpu(), n_hyp * 8, replacement=True,
-                              generator=generator)
-    return draws.reshape(n_hyp, 8).to(mask.device)
+def draw_samples(mask: torch.Tensor, n_hyp: int, generator: torch.Generator,
+                 k: int = 8):
+    """[n_hyp, k] indices drawn with replacement, uniformly among the valid
+    entries (the JAX package's weighted jax.random.choice), uniformly among
+    all when none is valid. Fetches the mask to the host."""
+    p = mask.float().cpu()
+    if not bool(p.any()):
+        p = torch.ones_like(p)
+    draws = torch.multinomial(p, n_hyp * k, replacement=True, generator=generator)
+    return draws.reshape(n_hyp, k).to(mask.device)
 
 
 def reconstruct(x1, x2, mask, generator: torch.Generator | None = None,

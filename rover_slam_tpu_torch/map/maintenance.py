@@ -1,13 +1,13 @@
-"""Map maintenance run by the keyframe insert: neighbourhood fusion,
-representative descriptors, visibility statistics, exact observation counts
-and landmark culling.
+"""Map maintenance: neighbourhood fusion, representative descriptors,
+visibility statistics, exact observation counts, landmark culling and
+keyframe culling.
 
-Counterpart of the keyframe-insert subset of rover_slam_tpu/map/maintenance.py
-(`fuse_into_keyframe`, `update_distinctive_descriptors`,
-`update_found_visible`, `recount_lm_obs`, `cull_landmarks`). Keyframe culling
-and the global BA belong to later slices.
+Counterpart of rover_slam_tpu/map/maintenance.py without the global BA
+(which belongs to the loop-closing slice).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +25,73 @@ def cull_landmarks(state: ms.MapState, min_found_ratio: float = 0.05,
     weak = (found_ratio < min_found_ratio) | ((age >= min_age_kf) & (state.lm_n_obs <= min_obs))
     kill = state.lm_active & weak & (state.lm_first_kf >= 0)
     return ms.remove_landmarks(state, kill)
+
+
+def cull_keyframes(state: ms.MapState, redundancy: float = 0.9, min_kept_obs: int = 3):
+    """(state, n_culled); see cull_keyframes_ex."""
+    state, n, _ = cull_keyframes_ex(state, redundancy, min_kept_obs)
+    return state, n
+
+
+def cull_keyframes_ex(state: ms.MapState, redundancy: float = 0.9, min_kept_obs: int = 3):
+    """Deactivate redundant keyframes: more than `redundancy` of their
+    landmarks are observed by >= min_kept_obs other keyframes (reference
+    KeyFrameCulling). Keyframes 0 and 1, the two newest and loop-edge
+    endpoints are protected. Returns (state, n_culled, redirect); see
+    _apply_kf_cull."""
+    K = state.K
+    obs = ms.observation_matrix(state)
+    redundant_lm = (obs.sum(dim=0)[None, :] - obs) >= min_kept_obs
+    n_own = obs.sum(dim=1)
+    n_red = (obs * redundant_lm).sum(dim=1)
+    frac = n_red / torch.clamp(n_own, min=1.0)
+    ar = torch.arange(K, device=state.device)
+    protect = (ar <= 1) | (ar >= state.n_kf - 2) | state.kf_loop_edges.any(dim=1)
+    cull = state.kf_active & (frac > redundancy) & ~protect & (n_own > 0)
+    return _apply_kf_cull(state, cull, obs)
+
+
+def cull_oldest_ex(state: ms.MapState, n_free: int = 4, protect_recent: int = 8):
+    """Capacity-pressure fallback when nothing is redundant: deactivate the
+    n_free oldest keyframes of the active map, sparing loop-edge endpoints,
+    stored maps and the newest protect_recent. Returns like
+    cull_keyframes_ex."""
+    act = state.kf_active & (state.kf_map_id == state.active_map_id)
+    rank = torch.cumsum(act.to(torch.int32), 0) - 1
+    recent = rank >= torch.sum(act, dtype=torch.int32) - protect_recent
+    cand = act & ~state.kf_loop_edges.any(dim=1) & ~recent
+    cull = cand & (torch.cumsum(cand.to(torch.int32), 0) - 1 < n_free)
+    return _apply_kf_cull(state, cull, ms.observation_matrix(state))
+
+
+def _apply_kf_cull(state: ms.MapState, cull, obs):
+    """Keyframe removal (reference KeyFrame::SetBadFlag): children re-parented
+    to their first surviving ancestor by pointer jumping (ceil(log2 K) hops
+    resolve any culled chain), observation counts decremented, observations
+    cleared. redirect = (cull [K], surviving parent [K] int32 (-1 where not
+    culled or none survives), R_cp [K,3,3], t_cp [K,3]): each culled
+    keyframe's pose relative to that ancestor, frozen now, so trajectory
+    reconstitution can chain through it."""
+    K = state.K
+
+    def culled_at(p):
+        return (p >= 0) & cull[p.long().clamp(0, K - 1)]
+
+    parent = state.kf_parent
+    for _ in range(max(1, math.ceil(math.log2(max(K, 2))))):
+        parent = torch.where(culled_at(parent), parent[parent.long().clamp(0, K - 1)], parent)
+    surv = torch.where(culled_at(parent), -1, parent)
+    sc = surv.long().clamp(0, K - 1)
+    R_cp = torch.einsum("kij,klj->kil", state.kf_R_cw, state.kf_R_cw[sc])
+    t_cp = state.kf_t_cw - torch.einsum("kij,kj->ki", R_cp, state.kf_t_cw[sc])
+    redirect = (cull, torch.where(cull, surv, -1).to(torch.int32), R_cp, t_cp)
+    dropped = (obs * cull[:, None].float()).sum(dim=0)
+    state = state.replace(
+        kf_active=state.kf_active & ~cull,
+        kf_landmark_idx=torch.where(cull[:, None], -1, state.kf_landmark_idx),
+        kf_parent=torch.where(cull, -1, parent).to(torch.int32),
+        lm_n_obs=torch.clamp(state.lm_n_obs - dropped.to(torch.int32), min=0))
+    return state, torch.sum(cull, dtype=torch.int32), redirect
 
 
 def fuse_into_keyframe(state: ms.MapState, kf_id, cam_params,

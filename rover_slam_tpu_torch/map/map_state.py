@@ -2,10 +2,11 @@
 
 Counterpart of rover_slam_tpu/map/map_state.py, for the monocular slice:
 `MapState` is a dataclass of tensors updated functionally with
-`dataclasses.replace` (the inertial, stereo and loop-edge fields of the JAX
-MapState belong to later slices). Observations are the table
-kf_landmark_idx[K, N] (keypoint slot -> landmark id or -1); covisibility is
-one product of the [K, L] observation indicator with itself.
+`dataclasses.replace` (the inertial and stereo fields of the JAX MapState
+belong to later slices). Observations are the table kf_landmark_idx[K, N]
+(keypoint slot -> landmark id or -1); covisibility is one product of the
+[K, L] observation indicator with itself. `compact_map` packs the live slots
+to the front of both tables and returns the renumbering.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from ..ops import scatterless
 
 FIELDS = ("kf_R_cw", "kf_t_cw", "kf_time", "kf_kpts", "kf_rays", "kf_desc",
           "kf_kpt_valid", "kf_landmark_idx", "kf_active", "kf_map_id",
-          "kf_parent", "lm_pos", "lm_desc", "lm_normal", "lm_active",
+          "kf_parent", "kf_loop_edges", "lm_pos", "lm_desc", "lm_normal", "lm_active",
           "lm_map_id", "lm_anchor_kf", "lm_n_obs", "lm_found", "lm_visible",
           "lm_first_kf", "n_kf", "n_lm", "active_map_id", "lm_dropped")
 
@@ -36,6 +37,7 @@ class MapState:
     kf_active: torch.Tensor      # [K] bool
     kf_map_id: torch.Tensor      # [K] int32
     kf_parent: torch.Tensor      # [K] int32 spanning-tree parent (-1 root)
+    kf_loop_edges: torch.Tensor  # [K,K] bool loop/merge edges (culling spares them)
     # --- landmarks (capacity L) ---
     lm_pos: torch.Tensor         # [L,3]
     lm_desc: torch.Tensor        # [L,D]
@@ -89,6 +91,7 @@ def empty_map(K: int = 256, N: int = 1024, L: int = 16384, D: int = 256,
         kf_desc=z(K, N, D), kf_kpt_valid=z(K, N, dtype=torch.bool),
         kf_landmark_idx=full((K, N), -1, i32), kf_active=z(K, dtype=torch.bool),
         kf_map_id=z(K, dtype=i32), kf_parent=full((K,), -1, i32),
+        kf_loop_edges=z(K, K, dtype=torch.bool),
         lm_pos=z(L, 3), lm_desc=z(L, D), lm_normal=z(L, 3),
         lm_active=z(L, dtype=torch.bool), lm_map_id=z(L, dtype=i32),
         lm_anchor_kf=full((L,), -1, i32), lm_n_obs=z(L, dtype=i32),
@@ -221,3 +224,89 @@ def replace_landmark_ids(state: MapState, old_to_new: torch.Tensor) -> MapState:
     li = state.kf_landmark_idx
     mapped = torch.where(li >= 0, old_to_new[li.long().clamp(0, state.L - 1)], li)
     return state.replace(kf_landmark_idx=mapped.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Slot compaction (capacity recycling)
+# ---------------------------------------------------------------------------
+
+def _pack_indices(keep: torch.Tensor):
+    """Order-preserving pack of the True slots of keep [n]. Returns
+    (old_of_new [n] gather indices, 0 past the count; new_live [n] bool;
+    old2new [n] int32, -1 where dropped)."""
+    n = keep.shape[0]
+    cnt = torch.cumsum(keep.to(torch.int32), 0)
+    old2new = torch.where(keep, cnt - 1, -1).to(torch.int32)
+    old_of_new = scatterless.nonzero_static(keep, n, 0)
+    new_live = torch.arange(n, device=keep.device) < cnt[-1]
+    return old_of_new, new_live, old2new
+
+
+def compact_map(state: MapState):
+    """Pack active keyframes and landmarks to the front of their tables,
+    keeping their order, and remap every index that points into them.
+    Landmarks whose anchor keyframe is gone are re-anchored to their first
+    surviving observer; landmarks with no surviving observer are dropped.
+    Returns (new_state, kf_old2new [K] int32, lm_old2new [L] int32), -1 for a
+    dropped slot."""
+    K, L = state.K, state.L
+    kf_of, kf_live, kf_o2n = _pack_indices(state.kf_active)
+
+    obs = observation_matrix(state) > 0                    # [K, L]
+    has_obs = obs.any(dim=0)
+    first_obs = obs.to(torch.uint8).argmax(dim=0).to(torch.int32)
+    anc = state.lm_anchor_kf
+    anc_ok = (anc >= 0) & (kf_o2n[anc.long().clamp(0, K - 1)] >= 0)
+    anc_res = torch.where(anc_ok, anc, torch.where(has_obs, first_obs, -1))
+    lm_keep = state.lm_active & (anc_res >= 0)
+    lm_of, lm_live, lm_o2n = _pack_indices(lm_keep)
+
+    def gather(arr, of, live, fill=None):
+        g = arr[of]
+        if fill is None:
+            return g
+        return torch.where(live.reshape((-1,) + (1,) * (arr.dim() - 1)), g, fill)
+
+    def gk(arr, fill=None):
+        return gather(arr, kf_of, kf_live, fill)
+
+    def gl(arr, fill=None):
+        return gather(arr, lm_of, lm_live, fill)
+
+    def remap(table, ids, n):
+        return torch.where(ids >= 0, table[ids.long().clamp(0, n - 1)], -1)
+
+    li_new = torch.where(kf_live[:, None], remap(lm_o2n, state.kf_landmark_idx[kf_of], L), -1)
+    par_new = torch.where(kf_live, remap(kf_o2n, state.kf_parent[kf_of], K), -1)
+    loops = state.kf_loop_edges[kf_of][:, kf_of] & kf_live[:, None] & kf_live[None, :]
+    anc_new = torch.where(lm_live, kf_o2n[anc_res[lm_of].long().clamp(0, K - 1)], -1)
+    fkf = state.lm_first_kf[lm_of]
+    fkf_new = torch.where(fkf >= 0, kf_o2n[fkf.long().clamp(0, K - 1)], 0)
+    fkf_new = torch.where(lm_live, torch.clamp(fkf_new, min=0), -1)
+
+    new = state.replace(
+        kf_R_cw=gk(state.kf_R_cw), kf_t_cw=gk(state.kf_t_cw), kf_time=gk(state.kf_time),
+        kf_kpts=gk(state.kf_kpts), kf_rays=gk(state.kf_rays), kf_desc=gk(state.kf_desc),
+        kf_kpt_valid=gk(state.kf_kpt_valid, False),
+        kf_landmark_idx=li_new.to(torch.int32),
+        kf_active=kf_live & gk(state.kf_active),
+        kf_map_id=gk(state.kf_map_id),
+        kf_parent=par_new.to(torch.int32),
+        kf_loop_edges=loops,
+        lm_pos=gl(state.lm_pos), lm_desc=gl(state.lm_desc), lm_normal=gl(state.lm_normal),
+        lm_active=lm_live & gl(lm_keep),
+        lm_map_id=gl(state.lm_map_id),
+        lm_anchor_kf=anc_new.to(torch.int32),
+        lm_n_obs=gl(state.lm_n_obs, 0),
+        lm_found=gl(state.lm_found, 1),
+        lm_visible=gl(state.lm_visible, 1),
+        lm_first_kf=fkf_new.to(torch.int32),
+        n_kf=torch.sum(state.kf_active, dtype=torch.int32),
+        n_lm=torch.sum(lm_keep, dtype=torch.int32))
+    return new, kf_o2n, lm_o2n
+
+
+def remap_landmark_refs(lidx: torch.Tensor, lm_old2new: torch.Tensor) -> torch.Tensor:
+    """A frame's per-keypoint landmark ids through a compaction table."""
+    L = lm_old2new.shape[0]
+    return torch.where(lidx >= 0, lm_old2new[lidx.long().clamp(0, L - 1)], -1).to(torch.int32)

@@ -17,6 +17,7 @@ runs on the CUDA cores.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -30,8 +31,10 @@ _HEAD_DIMS = (32, 64)
 # The bf16 kernel keeps one mask byte per key in shared memory.
 MAX_KV_BF16 = 131072
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+# Kernel launches since the last reset (chip_smoke.py reads and resets
+# both), in all and by batch size B.
 attention_launches = 0
+launches_by_batch = collections.Counter()
 
 
 def _scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -98,6 +101,7 @@ def _launch(q, k, v, mask_kv):
             out.data_ptr(), _DTYPES[q.dtype], B, H, Nq, Nk, Dh, strides, stream)
     _build.check(status, "flash_attention")
     attention_launches += 1
+    launches_by_batch[B] += 1
     return out
 
 

@@ -3,10 +3,16 @@ the index helpers with jax.lax semantics the port needs without a host sync
 (`top_k` tie order, `jnp.nonzero(size=)`).
 
 The JAX package writes the reductions as one-hot contractions because
-scatters are slow on the TPU; here they are native scatter ops with the same
-results. Indices outside [0, size) contribute nothing.
+scatters are slow on the TPU. Here the integer and boolean reductions are
+native scatter ops with the same results. Float sums never go through
+atomics (`index_add_` on the card adds in an order that changes from run to
+run): entries are sorted by segment once (`segment_plan`) and each segment is
+summed in entry order (`seg_sum`), so a run repeats to the bit. Indices
+outside [0, size) contribute nothing.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,11 +26,32 @@ def _bucket(idx: torch.Tensor, size: int, mask=None) -> torch.Tensor:
     return torch.where(ok, idx.long(), size)
 
 
+class SegmentPlan(NamedTuple):
+    """Entries sorted by segment: `order` [n] is the stable sort of the
+    entries by segment id, segment s holds sorted positions
+    [offsets[s], offsets[s + 1]), and out-of-range entries sort past
+    offsets[-1]."""
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def segment_plan(idx: torch.Tensor, size: int) -> SegmentPlan:
+    """The sort that `seg_sum` reduces through; build it once per index set."""
+    keys, order = torch.sort(_bucket(idx, size), stable=True)
+    offsets = torch.searchsorted(keys, torch.arange(size + 1, device=idx.device))
+    return SegmentPlan(order, offsets)
+
+
+def seg_sum(plan: SegmentPlan, vals: torch.Tensor) -> torch.Tensor:
+    """[n, ...] -> [size, ...]: each segment summed in entry order, the same
+    order on every run (0 for an empty segment)."""
+    return torch.segment_reduce(vals[plan.order], "sum", offsets=plan.offsets,
+                                axis=0, unsafe=True)
+
+
 def seg_add(idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
     """Segment-sum vals [N, ...] by idx [N] into [size, ...]."""
-    out = torch.zeros((size + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(0, _bucket(idx, size), vals)[:size]
+    return seg_sum(segment_plan(idx, size), vals)
 
 
 def seg_count(idx: torch.Tensor, size: int, mask=None) -> torch.Tensor:

@@ -5,8 +5,9 @@ Counterpart of rover_slam_tpu/optim/ba.py (`solve_ba`) with the options the
 keyframe insert uses: solver="schur", red_solver="direct", kf_major=True,
 lm_cap, two phases with a hard chi2 outlier drop between them. The `lax.scan`
 over LM steps becomes a Python loop; the JAX package's one-hot segment sums
-are native index_add here (same sums, another order). The matrix-free PCG
-solver of the global BA belongs to the loop-closing slice.
+are sorted segment sums here (`ops/scatterless.py`: same sums, another but
+fixed order, so a solve repeats to the bit). The matrix-free PCG solver of
+the global BA belongs to the loop-closing slice.
 
 kf_major is a contract on the edge list: edge rows [k*N, (k+1)*N) belong to
 window keyframe k, so pose-side sums are reshape-sums.
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import lie, cameras
-from ..ops.scatterless import nonzero_static
+from ..ops.scatterless import SegmentPlan, nonzero_static, seg_sum, segment_plan
 from . import robust
 from .blockinv import inv3, chol3, invn
 
@@ -80,6 +81,7 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         e_lmv = prob.e_lm.long()
         lmask_c = prob.lm_opt_mask
     Lw = C
+    lm_tgt = torch.where(lmask_c, var_c, L_full)
     pmask = prob.pose_opt_mask.float()[:, None]
     lmask = lmask_c.float()[:, None]
     delta2 = chi2_th
@@ -95,14 +97,18 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
     def seg_c(vals):
         return vals.reshape((Kw, Ne) + tuple(vals.shape[1:])).sum(dim=1)
 
+    # Landmark-side sums through one sort of the edges by (landmark, window
+    # kf), made once per solve: sorted by that key the edges are also sorted
+    # by landmark, so every Kw-th offset bounds one landmark's edges. Edges of
+    # the fixed/overflow bucket (e_lmv == Lw) sort last and are left out.
+    plan_lk = segment_plan(e_lmv * Kw + e_kf, Lw * Kw)
+    plan_l = SegmentPlan(plan_lk.order, plan_lk.offsets[::Kw])
+
     def seg_l(vals):
-        out = torch.zeros((Lw + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                          device=dev)
-        return out.index_add_(0, e_lmv, vals)[:Lw]
+        return seg_sum(plan_l, vals)
 
     def seg_cross(vals):   # [E,6,3] -> [Lw,Kw,6,3]
-        out = torch.zeros((Lw + 1, Kw, 6, 3), dtype=vals.dtype, device=dev)
-        return out.index_put_((e_lmv, e_kf), vals, accumulate=True)[:Lw]
+        return seg_sum(plan_lk, vals).reshape(Lw, Kw, 6, 3)
 
     def lm_step(prob, R, t, X, lam):
         e, Jc, Jl, depth = _edge_terms(cam_kind, prob, R, t, X)
@@ -154,7 +160,11 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         t_new = torch.einsum("kij,kj->ki", dR, t) + dt
         R_new = torch.where(pmask[:, :, None] > 0, R_new, R)
         t_new = torch.where(pmask > 0, t_new, t)
-        X_new = X.index_add(0, var_c, torch.where(lmask > 0, dx_l, 0.0))
+        # Each optimized landmark is written once; padding and fixed
+        # variables go to a spill row that is dropped.
+        X_ext = torch.cat([X, X.new_zeros(1, 3)])
+        X_new = X_ext.index_put((lm_tgt,), X_ext[lm_tgt]
+                                + torch.where(lmask > 0, dx_l, 0.0))[:L_full]
 
         e_new, _, _, _ = _edge_terms(cam_kind, prob, R_new, t_new, X_new)
         chi2_new = torch.sum(e_new * e_new, dim=-1) * prob.e_info

@@ -1,14 +1,19 @@
 """System facade: the user-facing monocular SLAM API.
 
-Counterpart of the synchronous path of rover_slam_tpu/slam/system.py
-(`MonocularSLAM` with pipeline=0 and loop closing off): per frame one track
-step and one flags fetch, then the host state machine and the keyframe
-decision; a keyframe insert runs triangulation, fusion and the windowed
-local BA on the device. Everything outside this slice raises
-NotImplementedError naming the slice that brings it.
+Counterpart of rover_slam_tpu/slam/system.py (`MonocularSLAM`) without loop
+closing: per frame one track step and one flags fetch, then the host state
+machine (OK, RECENTLY_LOST with relocalization, LOST with a new Atlas map)
+and the keyframe decision; a keyframe insert runs triangulation, fusion and
+the windowed local BA on the device. With pipeline=K the keyframe decision
+and insert run inside the frame's device program (`_track_and_map_body`) and
+the host reads each frame's flags K frames later. Keyframe slots carry
+host-side uids so that culling and compaction, which recycle slots, keep the
+trajectory whole. Loop closing and the multi-device BA raise
+NotImplementedError naming their slice.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -16,7 +21,10 @@ import torch
 
 from .. import resolve_device
 from ..geometry import two_view
+from ..map import atlas
+from ..map import maintenance
 from ..map import map_state as ms
+from ..ops import _build
 from ..utils.timing import StageTimers
 from . import tracking as T
 
@@ -25,6 +33,28 @@ def _later(what: str, slice_name: str):
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice of "
         "the PyTorch port (see ROADMAP.md)")
+
+
+class HostCopy:
+    """A device tensor on its way to the host: the copy into pinned memory
+    is queued behind the work already on the stream and an event marks its
+    end, so reading it later waits only for that (the JAX package's
+    copy_to_host_async). On the CPU it is a plain copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 class MonocularSLAM:
@@ -37,21 +67,30 @@ class MonocularSLAM:
         """matcher: optional learned frame-to-frame matcher called as
         matcher(kpts0, desc0, valid0, kpts1, desc1, valid1) -> [N] int32
         prev->cur indices (e.g. models.lightglue.LightGlueFrameMatcher);
-        None means mutual-NN descriptor matching (kernel B2). The two-view
-        RANSAC draws from a torch.Generator seeded with 7 (the JAX package's
-        PRNGKey(7)). device None means cuda."""
+        None means mutual-NN descriptor matching (kernel B2).
+
+        pipeline=K (int, True means 4): once the map holds
+        pipeline_warmup_kfs keyframes, each frame runs as one fused device
+        program (track, keyframe decision, insert) and its flags are read
+        K frames later; the state machine lags K frames. Call flush() before
+        reading final results.
+
+        The RANSAC draws (init, relocalization) come from a torch.Generator
+        seeded with 7 (the JAX package's PRNGKey(7)). device None means
+        cuda."""
         if enable_loop_closing or loop_config is not None:
             raise _later("Loop closing", "loop-closing")
-        if pipeline:
-            raise _later("pipeline=K (fused on-device track+map)", "pipelined tracking")
         if mesh is not None:
             raise _later("Multi-device map-scale BA (mesh=)", "multi-device")
         self.device = resolve_device(device)
         self.cfg = config or T.TrackerConfig()
-        if self.cfg.kf_cull_every > 0:
-            raise _later("Keyframe culling (kf_cull_every>0)",
-                         "capacity compaction and keyframe culling")
         self.matcher = matcher
+        self.pipeline_depth = 4 if pipeline is True else int(pipeline)
+        self.pipeline = self.pipeline_depth > 0
+        # Synchronous until the map has bootstrapped: right after init each
+        # frame's tracking needs the previous frame's triangulations.
+        self.pipeline_warmup_kfs = 8
+        self._pending = deque()       # FIFO of (frame, HostCopy of its flags)
         self.cam_params = torch.tensor(np.asarray(cam_params, np.float32),
                                        device=self.device)
         K, N, L = map_capacity
@@ -64,16 +103,32 @@ class MonocularSLAM:
         self.frames_since_kf = 0
         self.n_kf = 0
         self.timers = StageTimers()
-        # Trajectory log: (time, R_cw, t_cw, state, ref_slot, R_cr, t_cr);
-        # poses relative to the reference keyframe are recomposed at save
-        # time so later map corrections reach the whole history. Keyframe
-        # slots are stable identities until compaction (a later slice)
-        # renumbers them.
+        # Trajectory log: (time, R_cw, t_cw, state, ref_uid, R_cr, t_cr); the
+        # pose relative to the reference keyframe is recomposed at save time
+        # so later map corrections reach the whole history.
         self.trajectory = []
         self._generator = torch.Generator().manual_seed(7)
+        # Keyframe identity across slot recycling: _uid_of_slot maps a live
+        # slot to its uid; _kf_redirect holds, for every culled keyframe, its
+        # pose relative to its surviving spanning-tree ancestor at cull time.
+        self._next_uid = 0
+        self._uid_of_slot = np.full((K,), -1, np.int64)
+        self._kf_redirect = {}        # uid -> (parent_uid, R_cp, t_cp)
+        self._pending_cull_red = None  # HostCopy of the cull redirect arrays
         self._n_lm_used = 0
-        self._local_mask = None
-        self._kf_scalars = None
+        self._kf_compact_guard = 0    # back-off (frames) after a relief
+        self._lm_compact_guard = 0    # attempt that freed nothing
+        self._local_mask = None       # [L] local-map search mask
+        self._kf_scalars = None       # HostCopy of the last insert's scalars
+        # Pipeline mode: the device policy carry; compaction waits for a
+        # flush boundary because it renumbers slots in-flight frames hold.
+        self._policy = None
+        self._compact_requested = False
+        self._finishing_frame = None
+        # Lifecycle counters, for the caller's statistics.
+        self.reloc_attempts = 0
+        self.reloc_successes = 0
+        self.compactions = 0
         self._force_kf = False
         self._last_n_inl = 0
         self._lost_frames = 0
@@ -82,17 +137,22 @@ class MonocularSLAM:
 
     # ------------------------------------------------------------------
     def track_frame(self, kpts, rays, desc, valid, time) -> dict:
-        """Process one frame (arrays shaped [N, ...]). Returns tracking info."""
+        """Process one frame (arrays shaped [N, ...]). Returns tracking info
+        (in pipeline mode, of the frame finished now, K frames back)."""
         dev = self.device
         frame = T.FrameData(torch.as_tensor(kpts, device=dev).float(),
                             torch.as_tensor(rays, device=dev).float(),
                             torch.as_tensor(desc, device=dev).float(),
                             torch.as_tensor(valid, device=dev).bool(), float(time))
+        # Timestamp gap or step back: finish the old timeline, then continue
+        # in a fresh Atlas map (reference CreateMapInAtlas on a dt jump).
         if (self.cfg.timestamp_jump_s > 0 and self.last_frame is not None
                 and self.tracking_state in (T.OK, T.RECENTLY_LOST)
                 and (float(time) < self.last_frame.time - 1e-6
                      or float(time) - self.last_frame.time > self.cfg.timestamp_jump_s)):
-            raise _later("A timestamp jump (new Atlas map)", "LOST/Atlas")
+            self.flush()
+            if self.tracking_state in (T.OK, T.RECENTLY_LOST):
+                self._on_tracking_lost(frame)
         if self.tracking_state == T.NO_IMAGES_YET:
             self.init_frame = frame
             self.tracking_state = T.NOT_INITIALIZED
@@ -104,6 +164,12 @@ class MonocularSLAM:
                 self._log_pose(frame)
             return {"state": self.tracking_state, "init": ok}
 
+        if self._compact_requested:
+            self.flush()
+            self._compact_requested = False
+            self._relieve_capacity()
+
+        fused = self.pipeline and self.n_kf >= self.pipeline_warmup_kfs
         with self.timers.stage("lm_track"):
             R0, t0 = self._predict_pose()
             prev = self.last_frame
@@ -114,32 +180,66 @@ class MonocularSLAM:
                 ext_matches = self.matcher(prev.kpts, prev.desc, prev.valid,
                                            frame.kpts, frame.desc, frame.valid)
             cfg = self.cfg
-            R2, t2, cur_lm, flags = T._track_step_body(
-                self.state, prev.desc, prev.valid, prev_lidx,
-                frame.kpts, frame.desc, frame.valid, R0, t0,
-                self.cam_params, cfg.cam_kind, cfg.image_hw,
-                cfg.min_matches_motion, cfg.min_inliers_track,
-                cfg.min_inliers_local_map, cfg.proj_radius, cfg.desc_th2,
-                ref_kf=torch.tensor(max(self.n_kf - 1, 0), dtype=torch.int32, device=dev),
-                local_map_only=cfg.local_map_only, ext_matches=ext_matches,
-                max_depth=cfg.th_far_points, min_matches_ref_kf=cfg.min_matches_ref_kf,
-                motion_rounds=cfg.motion_rounds, motion_iters=cfg.motion_iters,
-                local_rounds=cfg.local_rounds, local_iters=cfg.local_iters,
-                local_mask=self._local_mask, min_inliers_weak=cfg.min_inliers_weak)
+            if fused:
+                if self._policy is None:
+                    self._policy = torch.tensor(
+                        [float(self.frames_since_kf), float(self.ref_kf_tracked), 0.0],
+                        device=dev)
+                mask = self._local_mask if self._local_mask is not None \
+                    else self.state.lm_active
+                (self.state, self._policy, self._local_mask,
+                 R2, t2, cur_lm, flags) = self._dispatch_fused(
+                    self.state, self._policy, mask, prev, prev_lidx, frame, R0, t0,
+                    ext_matches)
+                frame.fused = True
+            else:
+                R2, t2, cur_lm, flags = T._track_step_body(
+                    self.state, prev.desc, prev.valid, prev_lidx,
+                    frame.kpts, frame.desc, frame.valid, R0, t0,
+                    self.cam_params, cfg.cam_kind, cfg.image_hw,
+                    cfg.min_matches_motion, cfg.min_inliers_track,
+                    cfg.min_inliers_local_map, cfg.proj_radius, cfg.desc_th2,
+                    ref_kf=torch.tensor(max(self.n_kf - 1, 0), dtype=torch.int32,
+                                        device=dev),
+                    local_map_only=cfg.local_map_only, ext_matches=ext_matches,
+                    max_depth=cfg.th_far_points, min_matches_ref_kf=cfg.min_matches_ref_kf,
+                    motion_rounds=cfg.motion_rounds, motion_iters=cfg.motion_iters,
+                    local_rounds=cfg.local_rounds, local_iters=cfg.local_iters,
+                    local_mask=self._local_mask, min_inliers_weak=cfg.min_inliers_weak)
             frame.R_cw, frame.t_cw, frame.landmark_idx = R2, t2, cur_lm
+        flags = HostCopy(flags)
+
+        if fused:
+            # The flags ride to the host behind the queued work and are read
+            # K frames later; the motion model takes the device values now.
+            self._pending.append((frame, flags))
+            self._update_motion_model(frame)
+            self.last_frame = frame
+            self.frames_since_kf += 1
+            info_prev = None
+            while len(self._pending) > self.pipeline_depth:
+                info_prev = self._finish_track(*self._pending.popleft())
+            return info_prev if info_prev is not None else \
+                {"state": self.tracking_state, "queued": True}
+
         info = self._finish_track(frame, flags)
         self.last_frame = frame
         self.frames_since_kf += 1
         return info
 
-    def _finish_track(self, frame: T.FrameData, flags) -> dict:
-        """State machine and keyframe decision from the frame's flags."""
+    def _finish_track(self, frame: T.FrameData, flags: HostCopy) -> dict:
+        """State machine, relocalization and keyframe decision from the
+        frame's flags."""
+        # A compaction fired from the keyframe decision must remap this
+        # frame's landmark ids too: it is in neither _pending nor last_frame.
+        self._finishing_frame = frame
         with self.timers.stage("flags_fetch"):
-            flags = flags.cpu().numpy()       # the one host sync per frame
+            flags = flags.numpy()
         ok = bool(flags[0])
         self._last_n_inl = int(flags[1])
         weak = bool(flags[4])
         if ok:
+            # Only a fully tracked frame resets the survival clock.
             self._last_full_ok = frame.time
         if not ok and weak:
             # Weak band: keep the optimized pose, stay OK, insert urgently;
@@ -156,20 +256,122 @@ class MonocularSLAM:
             self.tracking_state = T.RECENTLY_LOST
             if (self._lost_frames >= 2 and self.n_kf >= 2
                     and self._lost_frames % max(self.cfg.reloc_every, 1) == 0):
-                raise _later("Relocalization", "relocalization")
-            if (frame.time - self._lost_since > self.cfg.time_recently_lost_s
-                    or frame.time - self._last_full_ok > self.cfg.time_recently_lost_s):
-                raise _later("LOST handling (reset or new Atlas map)", "LOST/Atlas")
+                ok = self._relocalize(frame)
+            if (not ok and self.tracking_state == T.RECENTLY_LOST
+                    and (frame.time - self._lost_since > self.cfg.time_recently_lost_s
+                         or frame.time - self._last_full_ok > self.cfg.time_recently_lost_s)):
+                # Grace window over: LOST, then reset or a new Atlas map.
+                self.tracking_state = T.LOST
+                self._on_tracking_lost(frame)
         else:
             self._lost_frames = 0
             self.tracking_state = T.OK
-            self._update_motion_model(frame)
+            if not self.pipeline:
+                self._update_motion_model(frame)
+
         self._log_pose(frame)
-        if ok and self._need_new_keyframe(frame):
+        if frame.fused:
+            # The device already decided and ran the insert; reconcile.
+            self._force_kf = False
+            if ok and flags[5]:
+                self._on_fused_insert(int(flags[1]))
+            self._n_lm_used = int(flags[7])
+            self._check_capacity_pressure(int(flags[6]))
+        elif ok and self._need_new_keyframe(frame):
             with self.timers.stage("new_kf"):
                 self._insert_keyframe(frame)
+        self._finishing_frame = None
         return {"state": self.tracking_state, "n_inliers": self._last_n_inl,
                 "pose": (frame.R_cw, frame.t_cw)}
+
+    def _relocalize(self, frame: T.FrameData) -> bool:
+        """Global relocalization (reference Relocalization after the
+        RECENTLY_LOST grace): with a learned matcher, PnP over one batched
+        match against candidate keyframes, else a mutual-NN match against
+        the whole landmark table. Only a strong result (min_reloc_inliers)
+        is accepted: a spurious one poisons the motion model."""
+        self.reloc_attempts += 1
+        with self.timers.stage("reloc"):
+            ext = self._reloc_candidates_matches(frame)
+            if ext is not None:
+                Rr, tr, lm_r, ok_r, n_r = T._reloc_from_kf_matches(
+                    self.state, *ext, frame.kpts, frame.desc, frame.valid,
+                    self.cam_params, self._generator, self.cfg.cam_kind)
+            else:
+                Rr, tr, lm_r, ok_r, n_r = T._relocalize_kernel(
+                    self.state, frame.kpts, frame.desc, frame.valid, self.cam_params,
+                    self._generator, self.cfg.cam_kind)
+            if not (bool(ok_r) and int(n_r) >= self.cfg.min_reloc_inliers):
+                return False
+        self.reloc_successes += 1
+        frame.R_cw, frame.t_cw, frame.landmark_idx = Rr, tr, lm_r
+        self.tracking_state = T.OK
+        self._last_full_ok = frame.time
+        self._last_n_inl = int(n_r)
+        self.velocity = None
+        self._lost_frames = 0
+        return True
+
+    def _reloc_candidates_matches(self, frame, n_cand: int = 3):
+        """With a learned matcher that batches: the n_cand most recent
+        keyframes (padded with the newest to a fixed batch) and ONE batched
+        match of the lost frame against them. Returns (cand_ids [B],
+        matches [B, N]) or None (global landmark-table relocalization).
+        With loop closing (a later slice) candidates come from place
+        recognition."""
+        if self.matcher is None or not hasattr(self.matcher, "match_batch"):
+            return None
+        ids = [i for i in range(self.n_kf - 1, self.n_kf - 1 - n_cand, -1) if i >= 0]
+        if not ids:
+            return None
+        ids += [ids[0]] * (n_cand - len(ids))
+        idc = torch.tensor(ids, dtype=torch.int32, device=self.device)
+        jc = idc.long()
+        st = self.state
+        B = len(ids)
+        ext = self.matcher.match_batch(
+            st.kf_kpts[jc], st.kf_desc[jc].float(), st.kf_kpt_valid[jc],
+            frame.kpts.expand(B, -1, -1), frame.desc.expand(B, -1, -1),
+            frame.valid.expand(B, -1))
+        return idc, ext
+
+    def _on_tracking_lost(self, frame):
+        """LOST after the grace window: a young active map (fewer than
+        min_kfs_keep_map keyframes) is discarded, a mature one is kept in the
+        Atlas; either way tracking restarts in a fresh map. In-flight frames
+        tracked the old map: their poses are logged, their state machine is
+        skipped."""
+        st = self.state
+        in_map = st.kf_active & (st.kf_map_id == st.active_map_id)
+        in_map_np = in_map.cpu().numpy()
+        if int(in_map_np.sum()) < self.cfg.min_kfs_keep_map:
+            st = st.replace(kf_active=st.kf_active & ~in_map,
+                            kf_landmark_idx=torch.where(in_map[:, None], -1,
+                                                        st.kf_landmark_idx))
+            st = ms.remove_landmarks(st, st.lm_active & (st.lm_map_id == st.active_map_id))
+            # The discarded map's keyframe uids are dead: their frames keep
+            # their absolute poses.
+            self._resolve_cull_redirects()
+            self._uid_of_slot[in_map_np] = -1
+        self.state = atlas.create_new_map(st)
+        self._local_mask = None
+        self._policy = None
+        self.tracking_state = T.NO_IMAGES_YET
+        self.init_frame = None
+        self.velocity = None
+        self._lost_frames = 0
+        for pf, _ in self._pending:
+            self._log_pose(pf)
+        self._pending.clear()
+        self._kf_scalars = None
+
+    def flush(self):
+        """Finish every in-flight frame (pipeline mode). Call before reading
+        final trajectories or state."""
+        info = None
+        while self._pending:
+            info = self._finish_track(*self._pending.popleft())
+        return info
 
     # ------------------------------------------------------------------
     def _monocular_init(self, frame: T.FrameData) -> bool:
@@ -187,7 +389,8 @@ class MonocularSLAM:
             self.init_frame = frame
             self.last_frame = frame
             return False
-        self._ensure_kf_capacity(need=2)
+        if not self._ensure_kf_capacity(need=2):
+            return False
         x0, x1 = T._init_coords(f0.rays, frame.rays, matches)
         sigma_n = float(self.cfg.init_sigma_px) / float(self.cam_params[0])
         tv = two_view.reconstruct(x0, x1, matches >= 0, generator=self._generator,
@@ -201,6 +404,8 @@ class MonocularSLAM:
             frame.kpts, frame.rays, frame.desc, frame.valid,
             f0.time, frame.time, matches, tv.success, tv.R_21, tv.t_21,
             tv.points3d, tv.is_triangulated, self.cam_params, self.cfg.cam_kind)
+        self._assign_uid(base)
+        self._assign_uid(base + 1)
         self.n_kf = base + 2
         # Init BA over the two keyframes (reference GlobalBundleAdjustemnt(20)).
         pad = self.cfg.local_window + self.cfg.fixed_window - 2
@@ -235,24 +440,102 @@ class MonocularSLAM:
                                          frame.R_cw, frame.t_cw)
 
     # ------------------------------------------------------------------
-    def _ensure_kf_capacity(self, need: int = 1):
-        if self.n_kf + need > self.state.K:
-            raise _later("Keyframe-table compaction (capacity full)",
-                         "capacity compaction and keyframe culling")
+    def _dispatch_fused(self, state, policy, mask, prev, prev_lidx, frame, R0, t0,
+                        ext_matches):
+        """The fused track+map program (shared by the product path and
+        precompile)."""
+        cfg = self.cfg
+        return T._track_and_map_body(
+            state, policy, mask, prev.desc, prev.valid, prev_lidx,
+            frame.kpts, frame.rays, frame.desc, frame.valid, R0, t0, frame.time,
+            self.cam_params, cfg.cam_kind, cfg.image_hw, cfg.min_matches_motion,
+            cfg.min_inliers_track, cfg.min_inliers_local_map, cfg.proj_radius,
+            cfg.desc_th2, float(cfg.kf_tracked_ratio), float(cfg.kf_min_interval),
+            float(cfg.kf_max_interval), cfg.local_window, cfg.fixed_window, cfg.ba_iters,
+            local_map_only=cfg.local_map_only, ext_matches=ext_matches,
+            max_depth=cfg.th_far_points, min_matches_ref_kf=cfg.min_matches_ref_kf,
+            motion_rounds=cfg.motion_rounds, motion_iters=cfg.motion_iters,
+            local_rounds=cfg.local_rounds, local_iters=cfg.local_iters,
+            min_inliers_weak=cfg.min_inliers_weak, ba_every=cfg.ba_every)
+
+    def precompile(self):
+        """Run the steady-state paths once on a copy of the state before a
+        timed region: the kernel builds, cuBLAS/cuDNN plans and allocator
+        pools of the fused track+map program (pipeline mode) and of
+        relocalization. Call after bootstrap (needs a tracked frame)."""
+        if self.device.type == "cuda":
+            _build.build()
+            for name in _build.SOURCES:
+                _build.load(name)
+        prev = self.last_frame
+        if prev is None or prev.R_cw is None:
+            return
+        state_c =ms.MapState(**{k: getattr(self.state, k).clone() for k in ms.FIELDS})
+        prev_lidx = prev.landmark_idx if prev.landmark_idx is not None \
+            else torch.full((self.state.N,), -1, dtype=torch.int32, device=self.device)
+        if self.pipeline:
+            policy = torch.tensor([0.0, float(self.ref_kf_tracked), 0.0], device=self.device)
+            ext = None
+            if self.matcher is not None:
+                ext = self.matcher(prev.kpts, prev.desc, prev.valid,
+                                   prev.kpts, prev.desc, prev.valid)
+            self._dispatch_fused(state_c, policy, state_c.lm_active.clone(), prev, prev_lidx,
+                                 prev, prev.R_cw, prev.t_cw, ext)
+        if self.n_kf >= 2:
+            gen = torch.Generator().manual_seed(0)   # leaves the run's draws alone
+            ext = self._reloc_candidates_matches(prev)
+            if ext is not None:
+                T._reloc_from_kf_matches(state_c, *ext, prev.kpts, prev.desc, prev.valid,
+                                         self.cam_params, gen, self.cfg.cam_kind)
+            else:
+                T._relocalize_kernel(state_c, prev.kpts, prev.desc, prev.valid,
+                                     self.cam_params, gen, self.cfg.cam_kind)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _on_fused_insert(self, n_inl: int):
+        """Host bookkeeping for a keyframe the device already inserted."""
+        with self.timers.stage("new_kf"):
+            self._assign_uid(self.n_kf)
+            self.n_kf += 1
+            self.frames_since_kf = 0
+            self.ref_kf_tracked = max(n_inl, 20)
+            self._post_insert_hooks()
+
+    def _check_capacity_pressure(self, n_kf_dev: int):
+        """Pipeline mode: ask for a compaction at the next flush boundary
+        when the lagged device counters show table pressure (the device
+        guard stops inserts before an overflow)."""
+        if (self._n_lm_used >= self.state.L - (3 * self.state.N + 64)
+                or n_kf_dev >= self.state.K - 2):
+            self._compact_requested = True
 
     def _relieve_capacity(self):
-        if self._n_lm_used >= self.state.L - (3 * self.state.N + 64):
-            raise _later("Landmark-table compaction (capacity pressure)",
-                         "capacity compaction and keyframe culling")
+        """Compaction and cull passes against table pressure (inline in sync
+        mode, at flush boundaries in pipeline mode)."""
+        lm_headroom = 3 * self.state.N + 64
+        if self._lm_compact_guard > 0:
+            self._lm_compact_guard -= 1
+        if (self._n_lm_used >= self.state.L - lm_headroom
+                and self._lm_compact_guard <= 0):
+            self._compact_map()
+            if self._n_lm_used >= self.state.L - lm_headroom:
+                self.state = maintenance.cull_landmarks(
+                    self.state, min_found_ratio=0.1, min_obs=2, min_age_kf=2)
+                self._compact_map()
+            if self._n_lm_used >= self.state.L - lm_headroom:
+                self._lm_compact_guard = 20
         self._ensure_kf_capacity(need=1)
 
     def _need_new_keyframe(self, frame) -> bool:
         """(reference NeedNewKeyFrame: the c1/c2 policy on the tracker's
         inlier decay from its peak since the last insert)."""
         if self._kf_scalars is not None:
-            self._n_lm_used = int(self._kf_scalars.cpu()[5])
+            self._n_lm_used = int(self._kf_scalars.numpy()[5])
             self._kf_scalars = None
         self._relieve_capacity()
+        if self.n_kf >= self.state.K:
+            return False
         if self._force_kf:
             self._force_kf = False
             return True
@@ -289,25 +572,40 @@ class MonocularSLAM:
             self.n_kf - 1, self.cam_params, self.cfg.cam_kind,
             self.cfg.local_window, self.cfg.fixed_window, self.cfg.ba_iters,
             run_ba=run_ba, ext_tri_ids=ext_ids, ext_tri_matches=ext_tri)
+        self._assign_uid(self.n_kf)
         self.n_kf += 1
         self.frames_since_kf = 0
         self.ref_kf_tracked = max(self._last_n_inl, 20)
         # Read by the next keyframe decision (n_lm for the capacity check).
-        self._kf_scalars = scalars
+        self._kf_scalars = HostCopy(scalars)
+        self._post_insert_hooks()
+
+    def _post_insert_hooks(self):
+        """Per-keyframe follow-up of both insert paths: the cull cadence."""
+        if (self.cfg.kf_cull_every > 0 and self.n_kf >= 6
+                and self.n_kf % self.cfg.kf_cull_every == 0):
+            self.state, _, redirect = maintenance.cull_keyframes_ex(
+                self.state, redundancy=self.cfg.kf_cull_redundancy)
+            self._record_cull_redirects(redirect)
 
     # ------------------------------------------------------------------
     def _log_pose(self, frame):
-        ref_slot, R_cr, t_cr = -1, None, None
+        ref_uid, R_cr, t_cr = -1, None, None
         if self.n_kf >= 1 and frame.R_cw is not None:
             ref_slot = self.n_kf - 1
+            ref_uid = int(self._uid_of_slot[ref_slot])
             R_cr, t_cr = T._rel_to_kf(self.state, frame.R_cw, frame.t_cw, ref_slot)
         self.trajectory.append((frame.time, frame.R_cw, frame.t_cw,
-                                self.tracking_state, ref_slot, R_cr, t_cr))
+                                self.tracking_state, ref_uid, R_cr, t_cr))
 
     def get_trajectory(self, reconstitute: bool = True):
         """Final trajectory (times, R_cw [F,3,3], t_cw [F,3]) as numpy arrays.
         reconstitute=True composes each frame's logged pose relative to its
-        reference keyframe with that keyframe's current pose."""
+        reference keyframe with that keyframe's current pose, chaining
+        through cull-time redirects for culled keyframes; a frame whose chain
+        died (a discarded map) keeps its absolute logged pose."""
+        self.flush()
+        self._resolve_cull_redirects()
         if not self.trajectory:
             return np.zeros((0,)), np.zeros((0, 3, 3)), np.zeros((0, 3))
         times = np.array([e[0] for e in self.trajectory])
@@ -317,10 +615,110 @@ class MonocularSLAM:
             return times, Rs, ts
         kf_R = self.state.kf_R_cw.cpu().numpy()
         kf_t = self.state.kf_t_cw.cpu().numpy()
-        for i, (_, _, _, _, s, R_cr, t_cr) in enumerate(self.trajectory):
-            if s < 0 or R_cr is None:
+        slot_of_uid = {int(u): s for s, u in enumerate(self._uid_of_slot) if u >= 0}
+        for i, (_, _, _, _, uid, R_cr, t_cr) in enumerate(self.trajectory):
+            if uid < 0 or R_cr is None:
                 continue
             R_cr = R_cr.cpu().numpy()
+            t_cr = t_cr.cpu().numpy()
+            depth = 0
+            while uid >= 0 and uid not in slot_of_uid and depth < 256:
+                red = self._kf_redirect.get(uid)
+                if red is None:
+                    uid = -1
+                    break
+                uid, R_rp, t_rp = red
+                # T_cr' = T_cr * T_rp: chain through the culled keyframe.
+                t_cr = R_cr @ t_rp + t_cr
+                R_cr = R_cr @ R_rp
+                depth += 1
+            if uid < 0 or uid not in slot_of_uid:
+                continue
+            s = slot_of_uid[uid]
             Rs[i] = R_cr @ kf_R[s]
-            ts[i] = R_cr @ kf_t[s] + t_cr.cpu().numpy()
+            ts[i] = R_cr @ kf_t[s] + t_cr
         return times, Rs, ts
+
+    # ------------------------------------------------------------------
+    # Keyframe identity and slot lifecycle
+    # ------------------------------------------------------------------
+    def _assign_uid(self, slot: int):
+        self._uid_of_slot[slot] = self._next_uid
+        self._next_uid += 1
+
+    def _record_cull_redirects(self, redirect):
+        """Start the redirect arrays' copy to the host; read at the next
+        resolve (no blocking fetch on the cull cadence)."""
+        self._resolve_cull_redirects()
+        self._pending_cull_red = [HostCopy(a) for a in redirect]
+
+    def _resolve_cull_redirects(self):
+        if self._pending_cull_red is None:
+            return
+        cull, surv, R_cp, t_cp = [a.numpy() for a in self._pending_cull_red]
+        self._pending_cull_red = None
+        for s in np.nonzero(cull)[0]:
+            uid = int(self._uid_of_slot[s])
+            if uid < 0:
+                continue
+            p = int(surv[s])
+            p_uid = int(self._uid_of_slot[p]) if p >= 0 else -1
+            self._kf_redirect[uid] = (p_uid, R_cp[s].copy(), t_cp[s].copy())
+            self._uid_of_slot[s] = -1
+
+    def _ensure_kf_capacity(self, need: int = 1) -> bool:
+        """Free keyframe slots when the table is near full: compact first;
+        when that frees nothing, cull redundant keyframes, and when nothing
+        is redundant shed the oldest ones (a fixed table must bound its
+        working set; the reference's maps grow without bound). A failed
+        attempt backs off 20 frames."""
+        if self._kf_compact_guard > 0:
+            self._kf_compact_guard -= 1
+        K = self.state.K
+        if self.n_kf + need <= K:
+            return True
+        if self._kf_compact_guard > 0:
+            return False
+        self._compact_map()
+        if self.n_kf + need > K:
+            st, n_c, redirect = maintenance.cull_keyframes_ex(
+                self.state, redundancy=self.cfg.kf_cull_redundancy)
+            if int(n_c) == 0:
+                st, n_c, redirect = maintenance.cull_oldest_ex(
+                    self.state, n_free=max(2, need, K // 8),
+                    protect_recent=min(16, K // 2))
+            if int(n_c) > 0:
+                self.state = st
+                self._record_cull_redirects(redirect)
+                self._compact_map()
+        if self.n_kf + need > K:
+            self._kf_compact_guard = 20
+            return False
+        return True
+
+    def _compact_map(self):
+        """Pack live keyframe and landmark slots to the front of the tables
+        and remap every host-side reference: the uid table, and the landmark
+        ids held by in-flight, last and finishing frames."""
+        self.compactions += 1
+        self._resolve_cull_redirects()
+        if self._kf_scalars is not None:
+            self.ref_kf_tracked = int(self._kf_scalars.numpy()[3])
+            self._kf_scalars = None
+        st, kf_o2n, lm_o2n = ms.compact_map(self.state)
+        kf_map = kf_o2n.cpu().numpy()
+        self.state = st
+        self._local_mask = None       # landmark ids were renumbered
+        new_uid = np.full_like(self._uid_of_slot, -1)
+        live = kf_map >= 0
+        new_uid[kf_map[live]] = self._uid_of_slot[live]
+        self._uid_of_slot = new_uid
+        self.n_kf = int(live.sum())
+        self._n_lm_used = int(st.n_lm)
+        frames = [p[0] for p in self._pending] + [self.last_frame, self._finishing_frame]
+        seen = set()
+        for f in frames:
+            if f is None or id(f) in seen or f.landmark_idx is None:
+                continue
+            seen.add(id(f))
+            f.landmark_idx = ms.remap_landmark_refs(f.landmark_idx, lm_o2n)

@@ -1,13 +1,16 @@
 """Tracking and keyframe-insert programs over the device-resident map.
 
-Counterpart of the synchronous-path subset of rover_slam_tpu/slam/tracking.py:
-`TrackerConfig`, `FrameData`, the per-frame track step (frame-to-frame match
--> motion-model pose opt -> reference-keyframe fallback -> local-map
-projection track -> pose opt) and the keyframe insert (covisibility ->
-triangulation against the top-2 neighbours -> fusion -> descriptors ->
-windowed local BA -> statistics and culling). Each `lax.cond` of the JAX
-package becomes a Python `if` on a fetched bool. The fused pipeline kernel
-(`_track_and_map_kernel`) and relocalization belong to later slices.
+Counterpart of rover_slam_tpu/slam/tracking.py: `TrackerConfig`,
+`FrameData`, the per-frame track step (frame-to-frame match -> motion-model
+pose opt -> reference-keyframe fallback -> local-map projection track -> pose
+opt), the keyframe insert (covisibility -> triangulation against the top-2
+neighbours -> fusion -> descriptors -> windowed local BA -> statistics and
+culling), the fused per-frame program of pipeline mode
+(`_track_and_map_body`: track step, on-device keyframe policy, conditional
+insert) and relocalization (`_relocalize_kernel` against the whole landmark
+table, `_reloc_from_kf_matches` from learned keyframe matches). Each
+`lax.cond` of the JAX package becomes a Python `if` on one fetched bool: one
+host sync each.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from ..map import map_state as ms
 from ..map import maintenance as mnt
 from ..ops import association as assoc
 from ..ops import scatterless
-from ..optim import pose_opt, ba, robust
+from ..optim import pose_opt, ba, pnp, robust
 
 # Scale/view-adaptive projection-search gates (reference MapPoint::
 # PredictScale distance band + isInFrustum viewing cos).
@@ -39,9 +42,8 @@ LOST = 4
 @dataclass
 class TrackerConfig:
     """Thresholds and schedules of the tracker: the JAX package's
-    TrackerConfig fields that the synchronous monocular path reads, with the
-    same names and defaults (the relocalization, LOST-map and culling
-    thresholds come with their slices)."""
+    TrackerConfig fields that the monocular path reads, with the same names
+    and defaults."""
     cam_kind: int = cameras.PINHOLE
     image_hw: tuple = (480, 640)
     min_matches_motion: int = 20
@@ -61,7 +63,10 @@ class TrackerConfig:
     ba_iters: int = 2
     ba_every: int = 1
     kf_cull_every: int = 0
+    kf_cull_redundancy: float = 0.9
     time_recently_lost_s: float = 2.0
+    min_kfs_keep_map: int = 10
+    min_reloc_inliers: int = 30
     reloc_every: int = 2
     timestamp_jump_s: float = 1.0
     init_sigma_px: float = 1.0
@@ -83,6 +88,7 @@ class FrameData:
     R_cw: Optional[torch.Tensor] = None
     t_cw: Optional[torch.Tensor] = None
     landmark_idx: Optional[torch.Tensor] = None
+    fused: bool = False     # tracked (and maybe inserted) by _track_and_map_body
 
 
 def _match_prev(desc0, valid0, desc1, valid1):
@@ -357,10 +363,11 @@ def _top_covis_for_frame(state: ms.MapState, frame_lidx, frame_valid, n: int = 2
 def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lidx,
                           time, parent, cam_params, cam_kind, n_opt: int,
                           n_fixed: int, ba_iters: int, run_ba: bool = True,
-                          ext_tri_ids=None, ext_tri_matches=None):
+                          ba_gate=None, ext_tri_ids=None, ext_tri_matches=None):
     """Add KF -> covisibility -> triangulation against the top-2 covisible
-    neighbours -> fusion -> descriptors -> windowed local BA -> landmark
-    statistics, recount, culling, normals and the local-map mask.
+    neighbours -> fusion -> descriptors -> windowed local BA (when run_ba and
+    the bool tensor ba_gate, if given, holds) -> landmark statistics,
+    recount, culling, normals and the local-map mask.
     Returns (state, scalars [kf_id, n_new0, n_new1, n_obs, n_kf, n_lm,
     lm_dropped], local_mask [L])."""
     K, L = state.K, state.L
@@ -384,7 +391,7 @@ def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lid
         n_new.append(n_j)
     state, _, _ = mnt.fuse_into_keyframe(state, kf_id, cam_params, cam_kind, obs=obs)
     state = mnt.update_distinctive_descriptors(state, kf_id, obs=obs)
-    if run_ba:
+    if run_ba and (ba_gate is None or bool(ba_gate)):
         window, opt_mask = _covis_window(state, kf_id, n_opt, n_fixed)
         state = _local_ba_body(state, window, opt_mask, cam_params, cam_kind, ba_iters)
 
@@ -422,6 +429,160 @@ def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lid
                            n_new[1].to(torch.int32), n_obs, state.n_kf, state.n_lm,
                            state.lm_dropped])
     return state, scalars, local_mask
+
+
+def _track_and_map_body(state: ms.MapState, policy, local_mask, prev_desc, prev_valid,
+                        prev_lidx, cur_kpts, cur_rays, cur_desc, cur_valid, R_pred, t_pred,
+                        time, cam_params, cam_kind, image_hw, min_matches_motion,
+                        min_inliers_track, min_inliers_local_map, proj_radius, desc_th2,
+                        kf_tracked_ratio, kf_min_interval, kf_max_interval, n_opt: int,
+                        n_fixed: int, ba_iters: int, local_map_only: bool = False,
+                        ext_matches=None, max_depth=100.0, min_matches_ref_kf=15,
+                        motion_rounds: int = 2, motion_iters: int = 5,
+                        local_rounds: int = 2, local_iters: int = 6, min_inliers_weak=12,
+                        ba_every: int = 1):
+    """One frame of pipeline mode: the track step, then the keyframe policy on
+    the device from this frame's own flags, then the keyframe insert when it
+    fires, so the map grows at frame rate however far the host's finish lags.
+
+    policy [3] f32 carry: (frames since the last insert, peak inliers since
+    then, inserts since the last windowed BA). The policy is the host's
+    (system._need_new_keyframe): weak-band urgency, the interval bounds, and
+    the c2 test of the inliers' decay from their peak; a capacity guard keeps
+    inserts out of a full table. With ba_every > 1 the windowed BA runs on
+    every ba_every-th insert; the carry starts at 0, so the first ba_every-1
+    inserts skip it (the JAX package's behaviour). local_mask [L] carries the
+    local-map search mask. Deciding the insert fetches one bool (the JAX
+    package's lax.cond).
+
+    Returns (state, policy, local_mask, R, t, lm_idx, flags [8] int32 = [ok,
+    n_inl, stage1_ok, n_cand, weak, did_insert, n_kf, n_lm]); lm_idx carries
+    the insert's new registrations when one fired."""
+    K, L, N = state.K, state.L, state.N
+    R2, t2, cur_lm, tflags = _track_step_body(
+        state, prev_desc, prev_valid, prev_lidx, cur_kpts, cur_desc, cur_valid, R_pred,
+        t_pred, cam_params, cam_kind, image_hw, min_matches_motion, min_inliers_track,
+        min_inliers_local_map, proj_radius, desc_th2,
+        ref_kf=torch.clamp(state.n_kf - 1, min=0), local_map_only=local_map_only,
+        ext_matches=ext_matches, max_depth=max_depth, min_matches_ref_kf=min_matches_ref_kf,
+        motion_rounds=motion_rounds, motion_iters=motion_iters, local_rounds=local_rounds,
+        local_iters=local_iters, local_mask=local_mask, min_inliers_weak=min_inliers_weak)
+    ok, weak = tflags[0] > 0, tflags[4] > 0
+    n_inl = tflags[1].float()
+    fs, peak0, sba = policy[0], policy[1], policy[2]
+    peak = torch.maximum(peak0, n_inl)
+    c2 = n_inl < kf_tracked_ratio * torch.clamp(peak, min=20.0)
+    need = weak | (fs >= kf_max_interval) | ((fs >= kf_min_interval) & c2)
+    can = (state.n_kf < K) & (state.n_lm < L - 2 * N - 64)
+    do_insert = (ok | weak) & need & can & (fs >= 1)
+    ba_due = (sba + 1.0 >= float(ba_every)) | (ba_every <= 1)
+    lm_idx = cur_lm
+    if bool(do_insert):
+        state, scal, local_mask = _insert_keyframe_body(
+            state, R2, t2, cur_kpts, cur_rays, cur_desc, cur_valid, cur_lm, time,
+            parent=torch.clamp(state.n_kf - 1, min=0), cam_params=cam_params,
+            cam_kind=cam_kind, n_opt=n_opt, n_fixed=n_fixed, ba_iters=ba_iters,
+            ba_gate=None if ba_every <= 1 else ba_due)
+        lm_idx = state.kf_landmark_idx[scal[0].long().clamp(0, K - 1)]
+    zero = torch.zeros_like(fs)
+    sba_next = torch.where(do_insert, torch.where(ba_due, zero, sba + 1.0), sba)
+    policy = torch.where(do_insert, torch.stack([zero, n_inl, sba_next]),
+                         torch.stack([fs + 1.0, peak, sba_next]))
+    flags = torch.cat([tflags, torch.stack([do_insert.to(torch.int32), state.n_kf,
+                                            state.n_lm])])
+    return state, policy, local_mask, R2, t2, lm_idx, flags
+
+
+def _reloc_expand(state: ms.MapState, active, cur_kpts, cur_desc, cur_valid, cam_params,
+                  cam_kind, R, t, lm_in, radius):
+    """One guided pass of relocalization (reference Relocalization's
+    SearchByProjection): project the active map at (R, t), match within
+    `radius` px keeping the associations already held, re-optimize.
+    Returns (R, t, lm [N], n_inliers)."""
+    L = state.L
+    uv, _, visible = assoc.project_landmarks(state.lm_pos, active, R, t, cam_params, cam_kind)
+    kpt_lm, _ = assoc.projection_match(uv, state.lm_desc.float(), visible, cur_kpts,
+                                       cur_desc, cur_valid, radius=radius)
+    lm2 = torch.where(lm_in >= 0, lm_in, kpt_lm)
+    lc = lm2.long().clamp(0, L - 1)
+    okc = (lm2 >= 0) & cur_valid & active[lc]
+    r = pose_opt.pose_optimization(R, t, state.lm_pos[lc], cur_kpts, okc, cam_params,
+                                   cam_kind=cam_kind, rounds=2, iters_per_round=6,
+                                   check_cost=False)
+    return r.R_cw, r.t_cw, torch.where(r.inliers, lm2, -1).to(torch.int32), r.n_inliers
+
+
+def _reloc_guided(state, active, cur_kpts, cur_desc, cur_valid, cam_params, cam_kind,
+                  R, t, lm):
+    """The wide (10 px) then narrow (3 px) guided passes."""
+    args = (state, active, cur_kpts, cur_desc, cur_valid, cam_params, cam_kind)
+    R, t, lm, _ = _reloc_expand(*args, R, t, lm, 10.0)
+    return _reloc_expand(*args, R, t, lm, 3.0)
+
+
+def _finite(R, t):
+    return torch.all(torch.isfinite(R)) & torch.all(torch.isfinite(t))
+
+
+def _relocalize_kernel(state: ms.MapState, cur_kpts, cur_desc, cur_valid, cam_params,
+                       generator=None, cam_kind: int = cameras.PINHOLE, samples=None):
+    """Global relocalization: mutual-NN of the lost frame's descriptors
+    against the whole active landmark table (kernel B2), PnP RANSAC, then
+    the guided passes when PnP found a pose with >= 8 inliers. `samples`
+    [300, 6] overrides the RANSAC draws. Returns (R, t, cur_lm [N], ok,
+    n_inliers)."""
+    L = state.L
+    active = state.lm_active & (state.lm_map_id == state.active_map_id)
+    matches, _ = assoc.mutual_nn_match(cur_desc, cur_valid, state.lm_desc.float(), active,
+                                       ratio=0.8)
+    mc = matches.long().clamp(0, L - 1)
+    ok_m = matches >= 0
+    res = pnp.pnp_ransac(state.lm_pos[mc], cur_kpts, ok_m, cam_params, generator,
+                         cam_kind=cam_kind, samples=samples)
+    R, t, n = res.R_cw, res.t_cw, res.n_inliers
+    lm = torch.where(res.inliers & ok_m, matches, -1).to(torch.int32)
+    if bool(res.success & (n >= 8)):
+        R, t, lm, n = _reloc_guided(state, active, cur_kpts, cur_desc, cur_valid,
+                                    cam_params, cam_kind, R, t, lm)
+    return R, t, lm, res.success & _finite(R, t), n
+
+
+def _reloc_from_kf_matches(state: ms.MapState, cand_ids, ext_matches, cur_kpts, cur_desc,
+                           cur_valid, cam_params, generator=None,
+                           cam_kind: int = cameras.PINHOLE, samples=None):
+    """Relocalization from learned keyframe <-> frame matches: per candidate
+    keyframe, carry its landmarks through the matches and solve PnP RANSAC
+    (one draw per candidate, as the JAX package splits its key per
+    candidate); the candidate with the most inliers wins and goes through
+    the guided passes when it has >= 8. cand_ids [B], ext_matches [B, N]
+    (candidate kpt -> frame kpt); `samples` [B, 300, 6] overrides the draws.
+    Returns (R, t, cur_lm [N], ok, n_inliers)."""
+    K, L, N = state.K, state.L, cur_kpts.shape[0]
+    best = None
+    for b in range(cand_ids.shape[0]):
+        c, m = cand_ids[b], ext_matches[b]
+        cc = c.long().clamp(0, K - 1)
+        kf_lidx = state.kf_landmark_idx[cc]
+        has = (m >= 0) & (kf_lidx >= 0) & state.kf_kpt_valid[cc]
+        lm_of_cur = _gather_lm(kf_lidx, assoc.invert_matches(torch.where(has, m, -1), N), N)
+        lc = lm_of_cur.long().clamp(0, L - 1)
+        ok_m = (lm_of_cur >= 0) & cur_valid & state.lm_active[lc] & (c >= 0)
+        res = pnp.pnp_ransac(state.lm_pos[lc], cur_kpts, ok_m, cam_params, generator,
+                             cam_kind=cam_kind,
+                             samples=None if samples is None else samples[b])
+        n = torch.where(res.success & _finite(res.R_cw, res.t_cw) & (c >= 0),
+                        res.n_inliers, -1)
+        cand = (res.R_cw, res.t_cw, torch.where(res.inliers & ok_m, lm_of_cur, -1), n)
+        # argmax: the first candidate with the most inliers wins
+        best = cand if best is None else tuple(
+            torch.where(cand[3] > best[3], x, y) for x, y in zip(cand, best))
+    R, t, lm, nb = best
+    n = torch.clamp(nb, min=0)
+    if bool(nb >= 8):
+        active = state.lm_active & (state.lm_map_id == state.active_map_id)
+        R, t, lm, n = _reloc_guided(state, active, cur_kpts, cur_desc, cur_valid,
+                                    cam_params, cam_kind, R, t, lm)
+    return R, t, lm.to(torch.int32), (nb > 0) & _finite(R, t), n
 
 
 def _relative_pose(R_prev, t_prev, R_cur, t_cur):

@@ -28,6 +28,7 @@ def _unit(g, n, d, device):
 
 @pytest.mark.parametrize("B,N,Dh,dtype", [(1, 1024, 64, torch.bfloat16),
                                           (2, 1280, 64, torch.bfloat16),
+                                          (3, 1024, 64, torch.bfloat16),
                                           (2, 100, 32, torch.bfloat16),
                                           (1, 300, 64, torch.float32)])
 def test_attention_kernel_matches_plain(dev, B, N, Dh, dtype):

@@ -1,7 +1,7 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
 chip_smoke.py, profile_port.py or tests/test_torch_cuda.py) imports JAX,
 Flax, Optax or the JAX package, its entry points default to the card, and
-what it has not ported raises."""
+what it has not ported raises (loop closing, the multi-device BA)."""
 import ast
 import pathlib
 
@@ -56,26 +56,19 @@ def test_entry_points_default_to_cuda():
     assert MonocularSLAM(CAM, device="cpu").state.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(pipeline=4),
-                                dict(pipeline=True), dict(mesh=object()),
-                                dict(config=TrackerConfig(kf_cull_every=4))])
+@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(mesh=object())])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         MonocularSLAM(CAM, device="cpu", **kw)
 
 
-def test_timestamp_jump_raises_instead_of_degrading():
-    from rover_slam_tpu_torch.utils import synthetic
-    world = synthetic.make_world(n_landmarks=3000, desc_dim=64, seed=0)
-    R_gt, t_gt, times = synthetic.forward_trajectory(n_frames=10, dt=0.1, speed=0.6,
-                                                     yaw_rate=0.04)
-    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=512,
-                                       pix_noise=0.4, desc_noise=0.05)
-    slam = MonocularSLAM(world.cam_params, map_capacity=(32, 512, 4096), desc_dim=64,
-                         device="cpu")
-    for f in frames:
-        slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time)
-    assert slam.n_kf >= 2
-    f = frames[-1]
-    with pytest.raises(NotImplementedError, match="Atlas"):
-        slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time + 5.0)
+@pytest.mark.parametrize("kw", [dict(pipeline=4), dict(pipeline=True),
+                                dict(config=TrackerConfig(kf_cull_every=4))])
+def test_lifecycle_options_are_ported(kw):
+    """pipeline=K and keyframe culling build a system (their parity tests are
+    tests/test_torch_system_*.py); without a card, cuda still raises."""
+    slam = MonocularSLAM(CAM, device="cpu", **kw)
+    assert slam.pipeline_depth == (4 if "pipeline" in kw else 0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MonocularSLAM(CAM, device=None, **kw)

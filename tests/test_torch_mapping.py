@@ -21,57 +21,8 @@ from rover_slam_tpu_torch.slam import tracking as tT
 from rover_slam_tpu_torch.slam.system import MonocularSLAM
 from rover_slam_tpu_torch.utils import synthetic
 
-POSE = dict(atol=1e-4, rtol=0)
-POINT = dict(atol=1e-3, rtol=0)
-CAM = np.asarray([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0], np.float32)
-INT_FIELDS = ("kf_landmark_idx", "kf_active", "kf_kpt_valid", "kf_parent", "lm_active",
-              "lm_n_obs", "lm_found", "lm_visible", "lm_first_kf", "lm_anchor_kf",
-              "n_kf", "n_lm", "lm_dropped")
-
-
-def _np(x):
-    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def to_jax_state(st: tms.MapState):
-    base = jms.empty_map(K=st.K, N=st.N, L=st.L, D=st.lm_desc.shape[1])
-    return base.replace(**{k: jnp.asarray(getattr(st, k).numpy()) for k in tms.FIELDS})
-
-
-def from_jax_state(st_j) -> tms.MapState:
-    return tms.map_state_from_numpy({f.name: np.asarray(getattr(st_j, f.name))
-                                     for f in dataclasses.fields(st_j)})
-
-
-def assert_desc_equivalent(st_t, st_j):
-    """Representative descriptors: where the two sides picked different
-    observations, both picks must reach the same minimum median distance.
-    Ties are common (every landmark observed twice has two equal medians) and
-    the JAX package breaks them by the rounding of its pairwise distances."""
-    dt, dj = _np(st_t.lm_desc), _np(st_j.lm_desc)
-    li, kv = _np(st_j.kf_landmark_idx), _np(st_j.kf_kpt_valid) & _np(st_j.kf_active)[:, None]
-    desc = _np(st_j.kf_desc)
-    diff = np.nonzero(_np(st_j.lm_active) & (np.abs(dt - dj).max(1) > 1e-5))[0]
-    for l in diff:
-        obs = desc[(li == l) & kv]
-
-        def med(x):
-            return np.median(((obs - x) ** 2).sum(1))
-        assert abs(med(dt[l]) - med(dj[l])) < 1e-5, l
-        assert np.abs(obs - dt[l]).max(1).min() < 1e-6, l    # one of the observations
-    return len(diff)
-
-
-def assert_states_match(st_t: tms.MapState, st_j):
-    for k in INT_FIELDS:
-        np.testing.assert_array_equal(_np(getattr(st_t, k)), _np(getattr(st_j, k)), err_msg=k)
-    act = _np(st_j.kf_active)
-    np.testing.assert_allclose(_np(st_t.kf_R_cw)[act], _np(st_j.kf_R_cw)[act], **POSE)
-    np.testing.assert_allclose(_np(st_t.kf_t_cw)[act], _np(st_j.kf_t_cw)[act], **POSE)
-    lm = _np(st_j.lm_active)
-    np.testing.assert_allclose(_np(st_t.lm_pos)[lm], _np(st_j.lm_pos)[lm], **POINT)
-    assert_desc_equivalent(st_t, st_j)
-    np.testing.assert_allclose(_np(st_t.lm_normal)[lm], _np(st_j.lm_normal)[lm], atol=1e-4)
+from torch_parity import (CAM, POSE, POINT, _np, assert_states_match,  # noqa: E402
+                          from_jax_state, to_jax_state)
 
 
 @pytest.fixture(scope="module")
@@ -371,3 +322,28 @@ def test_association_ops(scene):
     np.testing.assert_array_equal(
         tas.epipolar_gate(*(torch.from_numpy(a) for a in (kf[1], kf[0], m, R01, t01))).numpy(),
         np.asarray(jas.epipolar_gate(*(jnp.asarray(a) for a in (kf[1], kf[0], m, R01, t01)))))
+
+
+def test_segment_sums_match_the_one_hot_contraction():
+    """seg_sum (entries sorted by segment, each segment summed in entry
+    order) against the JAX package's one-hot seg_add; out-of-range indices
+    drop; a plan over (segment, sub-key) keys also serves the coarser
+    segments through every Kw-th offset, as optim/ba.py uses it."""
+    from rover_slam_tpu.ops import scatterless as jsl
+    from rover_slam_tpu_torch.ops import scatterless as tsl
+    rng = np.random.default_rng(5)
+    n, size, Kw = 3000, 257, 4
+    idx = rng.integers(-3, size + 3, n).astype(np.int32)
+    vals = rng.normal(size=(n, 3, 2)).astype(np.float32)
+    out_t = tsl.seg_add(torch.from_numpy(idx), torch.from_numpy(vals), size)
+    out_j = jsl.seg_add(jnp.asarray(idx), jnp.asarray(vals), size)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-6)
+    assert torch.equal(out_t, tsl.seg_add(torch.from_numpy(idx), torch.from_numpy(vals), size))
+    sub = rng.integers(0, Kw, n)
+    key = torch.from_numpy(np.where(idx >= 0, idx.astype(np.int64) * Kw + sub, -1))
+    plan = tsl.segment_plan(key, size * Kw)
+    coarse = tsl.SegmentPlan(plan.order, plan.offsets[::Kw])
+    np.testing.assert_allclose(tsl.seg_sum(coarse, torch.from_numpy(vals)).numpy(),
+                               np.asarray(out_j), atol=1e-5, rtol=1e-6)
+    fine = tsl.seg_sum(plan, torch.from_numpy(vals)).reshape(size, Kw, 3, 2)
+    np.testing.assert_allclose(fine.sum(1).numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-6)

@@ -1,0 +1,176 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): carry
+a map between the port's MapState and the JAX package's, compare the two,
+and build a mid-sequence map with the port."""
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+from rover_slam_tpu.map import map_state as jms
+from rover_slam_tpu_torch.map import map_state as tms
+
+POSE = dict(atol=1e-4, rtol=0)
+POINT = dict(atol=1e-3, rtol=0)
+CAM = np.asarray([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0], np.float32)
+INT_FIELDS = ("kf_landmark_idx", "kf_active", "kf_kpt_valid", "kf_parent", "lm_active",
+              "lm_n_obs", "lm_found", "lm_visible", "lm_first_kf", "lm_anchor_kf",
+              "n_kf", "n_lm", "lm_dropped")
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def to_jax_state(st: tms.MapState):
+    base = jms.empty_map(K=st.K, N=st.N, L=st.L, D=st.lm_desc.shape[1])
+    return base.replace(**{k: jnp.asarray(getattr(st, k).numpy()) for k in tms.FIELDS})
+
+
+def from_jax_state(st_j) -> tms.MapState:
+    return tms.map_state_from_numpy({f.name: np.asarray(getattr(st_j, f.name))
+                                     for f in dataclasses.fields(st_j)})
+
+
+def assert_desc_equivalent(st_t, st_j):
+    """Representative descriptors: where the two sides picked different
+    observations, both picks must reach the same minimum median distance.
+    Ties are common (every landmark observed twice has two equal medians) and
+    the JAX package breaks them by the rounding of its pairwise distances."""
+    dt, dj = _np(st_t.lm_desc), _np(st_j.lm_desc)
+    li, kv = _np(st_j.kf_landmark_idx), _np(st_j.kf_kpt_valid) & _np(st_j.kf_active)[:, None]
+    desc = _np(st_j.kf_desc)
+    diff = np.nonzero(_np(st_j.lm_active) & (np.abs(dt - dj).max(1) > 1e-5))[0]
+    for l in diff:
+        obs = desc[(li == l) & kv]
+
+        def med(x):
+            return np.median(((obs - x) ** 2).sum(1))
+        assert abs(med(dt[l]) - med(dj[l])) < 1e-5, l
+        assert np.abs(obs - dt[l]).max(1).min() < 1e-6, l    # one of the observations
+    return len(diff)
+
+
+def assert_states_match(st_t: tms.MapState, st_j):
+    for k in INT_FIELDS:
+        np.testing.assert_array_equal(_np(getattr(st_t, k)), _np(getattr(st_j, k)), err_msg=k)
+    act = _np(st_j.kf_active)
+    np.testing.assert_allclose(_np(st_t.kf_R_cw)[act], _np(st_j.kf_R_cw)[act], **POSE)
+    np.testing.assert_allclose(_np(st_t.kf_t_cw)[act], _np(st_j.kf_t_cw)[act], **POSE)
+    lm = _np(st_j.lm_active)
+    np.testing.assert_allclose(_np(st_t.lm_pos)[lm], _np(st_j.lm_pos)[lm], **POINT)
+    assert_desc_equivalent(st_t, st_j)
+    np.testing.assert_allclose(_np(st_t.lm_normal)[lm], _np(st_j.lm_normal)[lm], atol=1e-4)
+
+
+def assert_states_equal(st_t: tms.MapState, st_j):
+    """Every field of the port's MapState equals the JAX one, bit for bit."""
+    for k in tms.FIELDS:
+        a, b = _np(getattr(st_t, k)), _np(getattr(st_j, k))
+        assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def synthetic_frames(n_frames, seed=0, n_kpts=512):
+    """The JAX e2e tests' forward scene (3000 landmarks, 64-D descriptors)."""
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.make_world(n_landmarks=3000, desc_dim=64, seed=seed)
+    R_gt, t_gt, times = synthetic.forward_trajectory(n_frames=n_frames, dt=0.1, speed=0.6,
+                                                     yaw_rate=0.04)
+    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=n_kpts,
+                                       pix_noise=0.4, desc_noise=0.05)
+    return world, frames, (R_gt, t_gt, times)
+
+
+def ate(slam, R_gt, t_gt, times, t_min=-np.inf, t_max=np.inf):
+    """Scale-aligned ATE (m) of a system's trajectory over its frames logged
+    in [t_min, t_max) (evaluate_ate_scale's protocol)."""
+    from rover_slam_tpu.utils import trajectory
+    est_t, est_R, est_tcw = slam.get_trajectory()
+    est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
+    gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(times))])
+    pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times)
+             if t_min <= est_t[i] < t_max and np.isfinite(est_pos[i]).all()]
+    e = np.stack([est_pos[i] for i, _ in pairs])
+    g = np.stack([gt_pos[j] for _, j in pairs])
+    return trajectory.ate_rmse(e, g, with_scale=True)[0]
+
+
+def both_systems(cam_params, **kw):
+    """The JAX package's MonocularSLAM and the port's (on the CPU), built
+    alike: {"jax": ..., "torch": ...}."""
+    from rover_slam_tpu.slam import tracking as jT
+    from rover_slam_tpu.slam.system import MonocularSLAM as JaxSLAM
+    from rover_slam_tpu_torch.slam import tracking as tT
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM as TorchSLAM
+    cfg = kw.pop("config", None) or {}
+    return {"jax": JaxSLAM(cam_params, config=jT.TrackerConfig(**cfg), **kw),
+            "torch": TorchSLAM(cam_params, config=tT.TrackerConfig(**cfg), device="cpu", **kw)}
+
+
+def feed(slam, frames, dt=0.0):
+    """Track frames (time shifted by dt); returns the states track_frame
+    reported."""
+    return [slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time + dt)["state"]
+            for f in frames]
+
+
+def garbage_frames(n, t0, seed, n_kpts=512, dim=64, dt=0.1):
+    """Unmatchable frames (random keypoints and descriptors), tests/
+    test_e2e_mono.py's kidnap and LOST input."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        kpts = rng.uniform(20, 400, (n_kpts, 2)).astype(np.float32)
+        desc = rng.normal(size=(n_kpts, dim)).astype(np.float32)
+        desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+        rays = np.concatenate([kpts * 0.001, np.ones((n_kpts, 1))], 1).astype(np.float32)
+        out.append(SimpleNamespace(kpts=kpts, rays=rays, desc=desc,
+                                   valid=np.ones(n_kpts, bool), time=t0 + dt * k))
+    return out
+
+
+COMPACTION_K = 16
+COMPACTION_CFG = dict(kf_cull_every=3, kf_max_interval=4, min_init_matches=50,
+                      min_inliers_local_map=12)
+
+
+def run_compaction_scene(pipeline, n_frames):
+    """Both systems through the compaction scene (tables 16 / 512 / 2048),
+    counting compactions. Returns {name: dict(slam, states, compactions,
+    ate)}."""
+    world, frames, gt = synthetic_frames(n_frames)
+    out = {}
+    for name, slam in both_systems(world.cam_params,
+                                   map_capacity=(COMPACTION_K, 512, 2048), desc_dim=64,
+                                   config=COMPACTION_CFG, pipeline=pipeline).items():
+        compactions = []
+        compact = slam._compact_map
+
+        def counted(compact=compact, compactions=compactions):
+            compactions.append(1)
+            compact()
+
+        slam._compact_map = counted
+        states = feed(slam, frames)
+        slam.flush()
+        out[name] = dict(slam=slam, states=states, compactions=len(compactions),
+                         ate=ate(slam, *gt))
+    return out
+
+
+def check_compaction_scene(runs):
+    for name in ("jax", "torch"):
+        r = runs[name]
+        slam, states = r["slam"], r["states"]
+        first_ok = states.index(2)
+        assert all(s in (2, None) for s in states[first_ok:]), name
+        assert slam.tracking_state == 2, name
+        assert slam._next_uid > COMPACTION_K >= slam.n_kf, (name, slam._next_uid)
+        assert int(slam.state.lm_dropped) == 0, name
+        assert r["compactions"] >= 2 and len(slam._kf_redirect) > 0, name
+    t, j = runs["torch"], runs["jax"]
+    assert t["ate"] < 0.2 and abs(t["ate"] - j["ate"]) < 0.01, (t["ate"], j["ate"])
+    assert abs(t["slam"].n_kf - j["slam"].n_kf) <= 0.3 * j["slam"].n_kf
+    assert abs(t["slam"]._next_uid - j["slam"]._next_uid) <= 0.3 * j["slam"]._next_uid
