@@ -33,6 +33,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                four frames on which tracking fails, then frames 20 onward
                again: tracking must go RECENTLY_LOST and come back OK through
                relocalization (B1 at B=3 over the newest keyframes).
+  9. path E  — bench.py's full configuration: path C with loop closing on
+               (LoopConfig(min_covis_weight=30): place recognition, Sim3
+               verification with B2 at 1024 x 1024 x 256 per candidate, the
+               fire-time LightGlue match, essential-graph correction, chunked
+               global BA). Run twice: one trajectory digest, >= 90 % of
+               frames tracked, and a loop must fire. Prints bench.py's detail
+               fields.
+ 10. path F  — tests/test_loop_closing_e2e.py's loop scene (ring world,
+               100 frames over 1.25 revolutions, mutual-NN matching, tables
+               128 / 512 / 16384), once synchronous and once with pipeline=4:
+               a loop fires back to an early keyframe at a scale in (0.5, 2)
+               and the ATE stays under 5 cm. Then the merge tail:
+               tests/test_multisession.py's warped two-session scene, merged
+               through the loop closer's cross-map branch; the far end of the
+               absorbed map must come back within 0.35 of the injected drift.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -433,12 +448,14 @@ def _reset_launches():
     fa.attention_launches = 0
     fa.launches_by_batch.clear()
     nm.nn_launches = 0
+    nm.launches_by_shape.clear()
 
 
 def _launches() -> dict:
     from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
     return {"attention": fa.attention_launches, "nn": nm.nn_launches,
-            "attention_by_batch": dict(fa.launches_by_batch)}
+            "attention_by_batch": dict(fa.launches_by_batch),
+            "nn_by_shape": dict(nm.launches_by_shape)}
 
 
 class PathA:
@@ -487,10 +504,13 @@ class PathA:
         img = synthetic.render_photo_frame(self.world, R, t).astype(np.float32) / 255.0
         return torch.from_numpy(img)[None].to(self.dev)
 
-    def new_slam(self, pipeline=0):
+    def new_slam(self, pipeline=0, loop=False):
+        """loop=True: bench.py's loop closer, LoopConfig(min_covis_weight=30)."""
+        from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
         from rover_slam_tpu_torch.slam.system import MonocularSLAM
         return MonocularSLAM(self.cam, config=self.cfg, map_capacity=(self.K, NK, self.L),
-                             desc_dim=D, pipeline=pipeline, enable_loop_closing=False,
+                             desc_dim=D, pipeline=pipeline, enable_loop_closing=loop,
+                             loop_config=LoopConfig(min_covis_weight=30) if loop else None,
                              matcher=self.matcher, device=self.dev)
 
     def step_image(self, slam, img, t):
@@ -693,15 +713,18 @@ def phase_path_b_lifecycle(dev):
     return res
 
 
-def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4):
+def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4,
+               loop: bool = False, name: str = "C"):
     """bench.py's loop over the scene: a fresh pipeline=4 system, 40 warm-up
     frames, flush, precompile, the timed frames, flush. fps and frame times
     over the timed frames; with count_syncs, the implicit host syncs of the
     timed frames counted by torch.cuda.set_sync_debug_mode("warn") (the
-    deferred flags reads, one event wait per frame, are not among them)."""
+    deferred flags reads, one event wait per frame, are not among them).
+    loop=True is path E (bench.py with its loop closer): the result adds
+    flush_ms, the loop events and bench.py's loop_diag."""
     n_frames = len(scene.imgs)
     scene.warm_up()
-    slam = scene.new_slam(pipeline=pipeline)
+    slam = scene.new_slam(pipeline=pipeline, loop=loop)
     _reset_launches()
     for i in range(n_warm):
         scene.step(slam, i)
@@ -718,8 +741,10 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4):
                 t1 = time.perf_counter()
                 scene.step(slam, i)
                 frame_ms.append((time.perf_counter() - t1) * 1000.0)
+            t_fl = time.perf_counter()
             slam.flush()
             _sync(scene.dev)
+            flush_ms = (time.perf_counter() - t_fl) * 1000.0
             wall = time.perf_counter() - t0
         finally:
             if count_syncs:
@@ -732,15 +757,34 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4):
     ate_cm, _ = _ate_cm(slam, scene.R_gt, scene.t_gt, scene.times)
     res = {"frames": n_frames, "frames_timed": n_timed, "fps": n_timed / wall,
            "frame_ms_median": float(np.median(frame_ms)),
+           "frame_ms_mean": float(frame_ms.mean()),
            "frame_ms_p95": float(np.percentile(frame_ms, 95)),
-           "frame_ms_max": float(frame_ms.max()),
+           "frame_ms_max": float(frame_ms.max()), "flush_ms": flush_ms,
            "ate_cm": ate_cm, "frac_tracked": n_tracked / n_frames, "frames_tracked": n_tracked,
            "n_kf": slam.n_kf, "n_lm": int(slam.state.n_lm),
            "host_syncs_per_frame": syncs / n_timed if count_syncs else None,
            "launches": launches, "trajectory_digest": trajectory_digest(slam),
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
-    log("# path C:", json.dumps(res))
+    if loop:
+        res.update(loop_summary(slam))
+    log(f"# path {name}:", json.dumps(res))
     return res
+
+
+def loop_summary(slam) -> dict:
+    """n_loops, the loop events and bench.py's loop_diag (retrieval gates,
+    verification dispatches, best seed and guided inlier counts)."""
+    lc = slam.loop_closer
+    events = [dict(kf=kf, **{k: v for k, v in info.items() if k != "loop"})
+              for kf, info in slam.loop_events]
+    diag = {"n_queries": len(lc.score_log),
+            "n_dispatched": sum(1 for r in lc.score_log if r[3]),
+            "max_retrieval_score": max((r[1] for r in lc.score_log), default=0.0),
+            "max_minscore_gate": max((r[2] for r in lc.score_log), default=0.0),
+            "best_seed_inliers": max((max(r[4]) for r in lc.cand_log if r[4]), default=0),
+            "best_proj_inliers": max((r[6] for r in lc.cand_log), default=0),
+            "n_hyp_checks": len(lc.hyp_log)}
+    return {"n_loops": len(slam.loop_events), "loop_events": events, "loop_diag": diag}
 
 
 def phase_path_c(scene):
@@ -757,6 +801,130 @@ def phase_path_c(scene):
     if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
         raise AssertionError("path C: two runs gave different trajectories")
     return runs
+
+
+def phase_path_e(scene):
+    """Path E twice (bench.py's configuration): one digest, >= 90 % of
+    frames tracked, a loop fired in each run."""
+    runs = [run_path_c(scene, count_syncs=True, loop=True, name="E"),
+            run_path_c(scene, count_syncs=False, loop=True, name="E")]
+    for r in runs:
+        if not r["frac_tracked"] >= 0.9:
+            raise AssertionError(f"path E tracked only {r['frac_tracked']:.2f} of frames")
+        if not r["n_loops"] >= 1:
+            raise AssertionError(f"path E: no loop fired ({r['loop_diag']})")
+        if not math.isfinite(r["ate_cm"]):
+            raise AssertionError("path E: trajectory not finite")
+    if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
+        raise AssertionError("path E: two runs gave different trajectories")
+    return runs
+
+
+def _ring_frames(n_frames, revs, seed=0):
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.ring_world(n_landmarks=6000, desc_dim=64, seed=seed)
+    gt = synthetic.orbit_trajectory(n_frames=n_frames, revs=revs)
+    frames = synthetic.render_sequence(world, *gt, n_kpts=512, pix_noise=0.5,
+                                       desc_noise=0.05)
+    return world, frames, gt
+
+
+def run_path_f(dev, pipeline: int):
+    """tests/test_loop_closing_e2e.py's loop run on the card."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    world, frames, (R_gt, t_gt, times) = _ring_frames(100, 1.25)
+    slam = MonocularSLAM(world.cam_params, map_capacity=(128, 512, 16384), desc_dim=64,
+                         enable_loop_closing=True, config=T.TrackerConfig(local_map_only=True),
+                         loop_config=LoopConfig(min_covis_weight=20), pipeline=pipeline,
+                         device=dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    _feed(slam, frames)
+    slam.flush()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    ate_cm, _ = _ate_cm(slam, R_gt, t_gt, times)
+    res = {"pipeline": pipeline, "frames": len(frames), "fps": len(frames) / wall,
+           "ate_cm": ate_cm, "state": slam.tracking_state, "n_kf": slam.n_kf,
+           "launches": _launches(), **loop_summary(slam),
+           "place_recog_median_ms": slam.timers.summary().get(
+               "place_recog", {}).get("median_ms")}
+    log(f"# path F (pipeline={pipeline}):", json.dumps(res))
+    ev = res["loop_events"]
+    if not (slam.tracking_state == T.OK and ev):
+        raise AssertionError(f"path F (pipeline={pipeline}): no loop fired")
+    if not (ev[0]["candidate"] < ev[0]["kf"] - 10 and 0.5 < ev[0]["scale"] < 2.0):
+        raise AssertionError(f"path F (pipeline={pipeline}): implausible loop {ev[0]}")
+    if not ate_cm < 5.0:
+        raise AssertionError(f"path F (pipeline={pipeline}): ATE {ate_cm:.2f} cm >= 5 cm")
+    return res
+
+
+MERGE_DELTA = np.array([0.09, 0.0, -0.07], np.float32)   # tests/test_multisession.py
+
+
+def run_merge_tail(dev):
+    """tests/test_multisession.py::test_merge_propagates_drift_correction
+    (propagate=True) on the card: session one over a ring arc, its map warped
+    by MERGE_DELTA * ramp(kf id), resumed into a fresh system whose loop
+    closer welds the stored map when session two revisits it; the median
+    camera-centre error of the absorbed map's far end (keyframes >= 10)
+    against the pre-warp map must stay under 0.35 |delta|."""
+    from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    from rover_slam_tpu_torch.utils import config
+    world, frames, _ = _ring_frames(60, 0.6, seed=9)
+    slam = MonocularSLAM(world.cam_params, map_capacity=(96, 512, 16384), desc_dim=64,
+                         device=dev)
+    _reset_launches()
+    _feed(slam, frames)
+    st = slam.state
+    n1 = slam.n_kf
+
+    def centers(s):
+        return (-torch.einsum("kji,kj->ki", s.kf_R_cw, s.kf_t_cw))[:n1].cpu().numpy()
+
+    c_true = centers(st)
+    ramp = np.clip((np.arange(st.K) - 1) / 3.0, 0.0, 1.0)
+    off = torch.as_tensor((ramp[:, None] * MERGE_DELTA[None, :]).astype(np.float32), device=dev)
+    c_all = -torch.einsum("kji,kj->ki", st.kf_R_cw, st.kf_t_cw)
+    t_new = -torch.einsum("kij,kj->ki", st.kf_R_cw, c_all + off)
+    anchor = st.lm_anchor_kf.long().clamp(0, st.K - 1)
+    first = torch.arange(st.K, device=dev)[:, None] < n1
+    st = st.replace(kf_t_cw=torch.where(first, t_new, st.kf_t_cw),
+                    lm_pos=torch.where(st.lm_active[:, None], st.lm_pos + off[anchor],
+                                       st.lm_pos))
+    lc = LoopConfig(min_covis_weight=20, min_recent_kfs_gap=8, consistency_needed=2,
+                    run_gba=False, welding_window=12, welding_ba_iters=10)
+    slam2 = MonocularSLAM(world.cam_params, map_capacity=(96, 512, 16384), desc_dim=64,
+                          enable_loop_closing=True, loop_config=lc, device=dev)
+    config.resume_atlas(slam2, st)
+    merged_at = None
+    for i, f in enumerate(frames[:25]):
+        slam2.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time + 500.0)
+        if any(info.get("merge") for _, info in slam2.loop_events):
+            merged_at = i
+            break
+    err = np.linalg.norm(centers(slam2.state) - c_true, axis=1)
+    far = float(np.median(err[np.arange(n1) >= 10]))
+    res = {"session_one_kfs": n1, "merged_at_frame": merged_at,
+           "far_end_err_m": far, "bound_m": 0.35 * float(np.linalg.norm(MERGE_DELTA)),
+           "injected_drift_m": float(np.linalg.norm(MERGE_DELTA)),
+           "loop_events": loop_summary(slam2)["loop_events"], "launches": _launches()}
+    log("# path F merge tail:", json.dumps(res))
+    if merged_at is None:
+        raise AssertionError("path F merge tail: the merge never fired")
+    if not far < res["bound_m"]:
+        raise AssertionError(f"path F merge tail: far-end error {far:.4f} m >= "
+                             f"{res['bound_m']:.4f} m")
+    return res
+
+
+def phase_path_f(dev):
+    return {"F sync": run_path_f(dev, 0), "F pipeline=4": run_path_f(dev, 4),
+            "F merge tail": run_merge_tail(dev)}
 
 
 def phase_path_d(scene, lost_frame: int = 60, replay_from: int = 20, replay_to: int = 100):
@@ -829,6 +997,9 @@ def main():
     scene_c = PathA(dev, n_frames=160)
     paths["C run 1"], paths["C run 2"] = phase_path_c(scene_c)
     paths["D"] = phase_path_d(scene_c)
+    paths["E run 1"], paths["E run 2"] = phase_path_e(scene_c)
+    del scene_c
+    paths.update(phase_path_f(dev))
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

@@ -1,7 +1,7 @@
 """The JAX package and the PyTorch port, frame by frame, on the bench scene at
 full width, both on the CPU.
 
-    python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--out rows.json]
+    python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--out rows.json]
 
 The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
 480x640 frames rendered once with numpy at the bench's per-frame motion
@@ -10,6 +10,8 @@ descriptors. Each frame goes through two systems, each with its own shipped
 SuperPoint (1024 keypoints) and 9-layer LightGlue as the frame matcher,
 loop closing off, bench.py's TrackerConfig, pipeline=0 (or --pipeline K,
 with bench.py's flush after 40 frames: chip_smoke.py's path C at
+--frames 160; with --loop, loop closing on as bench.py configures it,
+LoopConfig(min_covis_weight=30): chip_smoke.py's path E at --pipeline 4
 --frames 160):
   jax    rover_slam_tpu's MonocularSLAM (LightGlue's attention on the XLA
          path, which rounds the scores and the softmax weights to bf16 at
@@ -24,8 +26,11 @@ keypoints matched by either side (a match agrees when both sides pick the
 same pixel in the current frame), tracking states, n_inliers, keyframe
 counts, and the distance between the two systems' camera centres (each in
 its own map frame: first keyframe at the origin, median depth 1). At the end
-each system's ATE (scale-aligned Horn, evaluate_ate_scale's protocol). A
-comparison script, not part of the port: it imports both packages.
+each system's ATE (scale-aligned Horn, evaluate_ate_scale's protocol), and
+with --loop each side's fired loops (query keyframe, candidate, inliers,
+scale, fused landmarks) and the loop closer's diagnostics (bench.py's
+loop_diag). A comparison script, not part of the port: it imports both
+packages.
 """
 from __future__ import annotations
 
@@ -106,10 +111,30 @@ def ate_cm(slam, R_gt, t_gt, times, trajectory):
     return float(trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0), len(pairs)
 
 
+def loop_report(slam) -> dict:
+    """A system's fired loops and its loop closer's diagnostics."""
+    lc = slam.loop_closer
+    events = [{"kf": int(kf), "candidate": int(info["candidate"]),
+               "n_inliers": int(info["n_inliers"]), "scale": float(info["scale"]),
+               "n_fused": int(info["n_fused"]), "merge": bool(info.get("merge", False))}
+              for kf, info in slam.loop_events]
+    return {"events": events,
+            "n_queries": len(lc.score_log),
+            "n_dispatched": sum(1 for r in lc.score_log if r[3]),
+            "best_seed_inliers": max((int(max(r[4])) for r in lc.cand_log if len(r[4])),
+                                     default=0),
+            "best_proj_inliers": max((int(r[6]) for r in lc.cand_log), default=0),
+            "cand_log": [[int(r[0]), [int(x) for x in r[1]], [int(x) for x in r[4]], int(r[6])]
+                         for r in lc.cand_log],
+            "n_hyp_checks": len(lc.hyp_log)}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
     ap.add_argument("--pipeline", type=int, default=0, metavar="K")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop closing on, LoopConfig(min_covis_weight=30) (bench.py's)")
     ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -122,6 +147,7 @@ def main():
                                                  LightGlueMatcher as JLG)
     from rover_slam_tpu.models.superpoint import SuperPointExtractor as JSP
     from rover_slam_tpu.slam import tracking as jT
+    from rover_slam_tpu.slam.loop_closing import LoopConfig as JLoopConfig
     from rover_slam_tpu.slam.system import MonocularSLAM as JSLAM
     from rover_slam_tpu.training import checkpoints as ckpt
     from rover_slam_tpu.utils import trajectory
@@ -131,6 +157,7 @@ def main():
     from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor as TSP
     from rover_slam_tpu_torch.models.weights import load_flat_npz
     from rover_slam_tpu_torch.slam import tracking as tT
+    from rover_slam_tpu_torch.slam.loop_closing import LoopConfig as TLoopConfig
     from rover_slam_tpu_torch.slam.system import MonocularSLAM as TSLAM
     from rover_slam_tpu_torch.utils import synthetic
 
@@ -159,15 +186,18 @@ def main():
     j_rec = Recorder(JLGF(JLG(params=ckpt.load_params(lg_path), num_kpts=NK, num_layers=9,
                               threshold=0.1), (H, W)))
     j_slam = JSLAM(cam, config=jT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
-                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=False, matcher=j_rec)
+                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=args.loop,
+                   loop_config=JLoopConfig(min_covis_weight=30) if args.loop else None,
+                   matcher=j_rec)
     j_cam = jnp.asarray(cam)
 
     t_ext = TSP(params=load_flat_npz(sp_path), max_keypoints=NK, device="cpu")
     t_rec = Recorder(TLGF(TLG(params=load_flat_npz(lg_path), num_layers=9, threshold=0.1,
                               device="cpu"), (H, W)))
     t_slam = TSLAM(cam, config=tT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
-                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=False, matcher=t_rec,
-                   device="cpu")
+                   desc_dim=D, pipeline=args.pipeline, enable_loop_closing=args.loop,
+                   loop_config=TLoopConfig(min_covis_weight=30) if args.loop else None,
+                   matcher=t_rec, device="cpu")
     t_cam = torch.from_numpy(cam)
 
     rows = []
@@ -210,6 +240,9 @@ def main():
             j_slam.flush()
             t_slam.flush()
 
+    if args.pipeline or args.loop:
+        j_slam.flush()
+        t_slam.flush()
     ate = {"jax": ate_cm(j_slam, R_gt, t_gt, times, trajectory),
            "torch": ate_cm(t_slam, R_gt, t_gt, times, trajectory)}
     agree = [r["match_agree"] for r in rows if r["match_agree"] is not None]
@@ -231,6 +264,9 @@ def main():
             (r["frame"] for r in rows
              if r["centre_dist"] is not None and r["centre_dist"] > 0.01), None),
         "seconds": secs}
+    if args.loop:
+        summary["loops"] = {name: loop_report(slam)
+                            for name, slam in (("jax", j_slam), ("torch", t_slam))}
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,8 +1,10 @@
 """Where the frame time goes on the card: torch.profiler over a steady window
 of chip_smoke.py's full-width bench scene, synchronous (path A) or pipelined
-(path C: --pipeline 4 --frames 160).
+(path C: --pipeline 4 --frames 160), or over path E's fired loop.
 
     python3 profile_port.py [--frames 60] [--window 20] [--pipeline K] [--out profile_out]
+    python3 profile_port.py --loop --pipeline 4 --frames 160 [--out profile_out]
+    python3 profile_port.py --read-trace profile_out/profile_port_p4_loop_trace.json.gz
     python3 profile_port.py --ate-spread RUNS [--frames 80] [--pipeline K] [--deterministic]
 
 Records device activity only (CUPTI kernel records; no host-op tracing, so
@@ -13,6 +15,15 @@ stage timers, and the host syncs per frame: the implicit ones counted with
 torch.cuda.set_sync_debug_mode("warn"), by source line, beside the flags
 reads (one event wait per frame, K frames late in pipeline mode); writes the
 gzipped chrome trace and the full table under --out.
+
+With --loop the system is path E's (bench.py with its loop closer). A first
+run, unprofiled, finds the frame whose finish fires the loop (runs repeat to
+the bit, so the second run fires at the same frame); the second run is
+profiled from two frames before that frame through the frames whose polls
+run the deferred global-BA chunks (LoopConfig.gba_iters chunks of
+gba_chunk_iters iterations), plus two, and the final flush. Its output adds
+`loop_breakdown` (see loop_trace_breakdown), which --read-trace prints again
+from the trace file alone, without a device.
 
 With --ate-spread, it measures instead path A's trajectory error (path C's
 with --pipeline 4 --frames 160), RUNS runs through fresh systems for each
@@ -133,6 +144,76 @@ def census(cs, scene):
     return r, dict(sorted(counts.items()))
 
 
+WARM = 40      # bench.py's warm-up frames before flush and precompile
+
+
+def _loop_fire_frame(scene, pipeline: int):
+    """The frame index whose step fires path E's first loop (a fresh system
+    through bench.py's warm-up and timed frames; the last frame when the loop
+    fires in the final flush), or None."""
+    slam = scene.new_slam(pipeline=pipeline, loop=True)
+    for i in range(len(scene.imgs)):
+        if i == WARM and pipeline:
+            slam.flush()
+            slam.precompile()
+        scene.step(slam, i)
+        if slam.loop_events:
+            return i
+    slam.flush()
+    return len(scene.imgs) - 1 if slam.loop_events else None
+
+
+def loop_trace_breakdown(trace_gz: str, pcg_iters: int) -> dict:
+    """Path E's loop window read from its chrome trace: `segment_reduce`
+    launches by grid size (count, ms, median ms), and the pose graph's
+    Gauss-Newton steps. The pose graph's PCG matvec is a cuBLAS gemv over the
+    dense [7K, 7K] f32 matrix, so it takes at least 14 µs at K=512 (51 MB at
+    3.35 TB/s); its launches come in runs of pcg_iters, one per GN step,
+    apart from other gemv launches of that length. The GN steps span the
+    first such run's start to the last one's end: launches, busy ms and wall
+    ms there, and for the first step its PCG run and the gap after it."""
+    with gzip.open(trace_gz, "rt") as f:
+        ev = sorted((e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    seg = collections.defaultdict(list)
+    for e in ev:
+        if "segment_reduce" in e["name"]:
+            seg[str(e["args"].get("grid"))].append(e["dur"])
+    out = {"segment_reduce_by_grid": {
+        g: {"launches": len(d), "ms": sum(d) / 1e3, "median_ms": statistics.median(d) / 1e3}
+        for g, d in sorted(seg.items(), key=lambda kv: -sum(kv[1]))}}
+    by_name = collections.defaultdict(list)
+    for e in ev:
+        if "gemv" in e["name"] and 14.0 <= e["dur"] < 30.0:
+            by_name[e["name"]].append(e)
+    runs = []
+    for mv in by_name.values():
+        cur = []
+        for e in mv:
+            if cur and e["ts"] - cur[-1]["ts"] > 50e3:     # 50 ms apart: another run
+                runs.append(cur)
+                cur = []
+            cur.append(e)
+        runs.append(cur)
+    runs = sorted((r for r in runs if len(r) == pcg_iters), key=lambda r: r[0]["ts"])
+    if not runs:
+        return out
+
+    def span(a, b):
+        ins = [e for e in ev if a <= e["ts"] and e["ts"] + e["dur"] <= b]
+        return {"wall_ms": (b - a) / 1e3, "launches": len(ins),
+                "busy_ms": sum(e["dur"] for e in ins) / 1e3}
+
+    first_end = runs[0][-1]["ts"] + runs[0][-1]["dur"]
+    out["pose_graph"] = {
+        "gn_steps": len(runs), "pcg_iters": pcg_iters,
+        "all_steps": span(runs[0][0]["ts"], runs[-1][-1]["ts"] + runs[-1][-1]["dur"]),
+        "first_pcg": span(runs[0][0]["ts"], first_end),
+        "between_first_two": span(first_end, runs[1][0]["ts"]) if len(runs) > 1 else None,
+        "matvec_median_us": statistics.median(e["dur"] for r in runs for e in r)}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -141,6 +222,12 @@ def main():
     ap.add_argument("--pipeline", type=int, default=0, metavar="K",
                     help="profile the pipelined tracker (pipeline=K, path C; bench.py's "
                          "warm-up, flush and precompile before the window)")
+    ap.add_argument("--loop", action="store_true",
+                    help="path E's loop closer on; the window covers the fired loop and "
+                         "the global-BA chunks after it")
+    ap.add_argument("--read-trace", default=None, metavar="TRACE_GZ",
+                    help="print the --loop breakdown of a trace a --loop run wrote, and stop "
+                         "(needs no device)")
     ap.add_argument("--out", default="profile_out",
                     help="directory for the trace and the full table")
     ap.add_argument("--ate-spread", type=int, default=0, metavar="RUNS",
@@ -150,14 +237,18 @@ def main():
                          "that have none (alone: path A once, with a census of the ops "
                          "the switch reroutes)")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    pcg_iters = max(48, cs.PathA.K // 2)   # optimize_essential_graph's default at the bench K
+    if args.read_trace:
+        print(json.dumps(loop_trace_breakdown(args.read_trace, pcg_iters), indent=1))
+        return
     if not torch.cuda.is_available():
         print("profile_port.py: no CUDA device", file=sys.stderr)
         sys.exit(1)
     if args.deterministic:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # before cuBLAS starts
         torch.use_deterministic_algorithms(True, warn_only=True)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
@@ -194,20 +285,33 @@ def main():
         os.system("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
         return
     scene.warm_up()
-    slam = scene.new_slam(pipeline=args.pipeline)
-    start = args.frames - args.window
-    for i in range(start):
+    start, end = args.frames - args.window, args.frames
+    fire = None
+    if args.loop:
+        fire = _loop_fire_frame(scene, args.pipeline)
+        if fire is None:
+            print(json.dumps({"loop": "no loop fired in the scene"}))
+            sys.exit(1)
+        lc_cfg = scene.new_slam(pipeline=args.pipeline, loop=True).loop_closer.cfg
+        chunks = -(-lc_cfg.gba_iters // max(lc_cfg.gba_chunk_iters, 1))
+        start, end = max(fire - 2, WARM), min(fire + chunks + 2, args.frames)
+    window = end - start
+    slam = scene.new_slam(pipeline=args.pipeline, loop=args.loop)
+    warm = min(start, WARM) if args.pipeline else start
+    for i in range(warm):
         scene.step(slam, i)
     if args.pipeline:
         slam.flush()           # bench.py's warm-up ends so
         slam.precompile()
+    for i in range(warm, start):
+        scene.step(slam, i)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                for i in range(start, args.frames):
+                for i in range(start, end):
                     scene.step(slam, i)
                 slam.flush()
                 torch.cuda.synchronize()
@@ -224,13 +328,16 @@ def main():
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     dev_total = sum(r[1] for r in rows)
-    out = {"pipeline": args.pipeline, "frames": args.frames,
-           "frames_profiled": args.window, "wall_ms": wall_us / 1e3,
-           "ms_per_frame": wall_us / 1e3 / args.window,
+    out = {"pipeline": args.pipeline, "frames": args.frames, "loop": args.loop,
+           "window": [start, end], "loop_fired_at_frame": fire,
+           "loop_events": [(kf, {k: v for k, v in info.items() if k != "loop"})
+                           for kf, info in getattr(slam, "loop_events", [])],
+           "frames_profiled": window, "wall_ms": wall_us / 1e3,
+           "ms_per_frame": wall_us / 1e3 / window,
            "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
            "device_kernel_ms_total": dev_total / 1e3,
            "n_kf": slam.n_kf,
-           "host_syncs_per_frame": sum(sync_sites.values()) / args.window,
+           "host_syncs_per_frame": sum(sync_sites.values()) / window,
            "host_sync_sites": dict(sync_sites.most_common(12)),
            "flags_reads_per_frame": len(slam.timers.samples.get("flags_fetch", [])) / args.frames,
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()},
@@ -239,7 +346,7 @@ def main():
                             "share_of_device": t / max(dev_total, 1e-9)}
                            for k, t, c in rows[:20]]}
     os.makedirs(args.out, exist_ok=True)
-    tag = f"_p{args.pipeline}" if args.pipeline else ""
+    tag = (f"_p{args.pipeline}" if args.pipeline else "") + ("_loop" if args.loop else "")
     trace = os.path.join(args.out, f"profile_port{tag}_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
@@ -247,6 +354,8 @@ def main():
     os.remove(trace)
     with open(os.path.join(args.out, f"profile_port{tag}_table.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
+    if args.loop:
+        out["loop_breakdown"] = loop_trace_breakdown(trace + ".gz", pcg_iters)
     print(json.dumps(out, indent=1))
     os.system("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
 

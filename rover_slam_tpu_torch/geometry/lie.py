@@ -1,15 +1,18 @@
 """Batched SO(3) / SE(3) on tensors with arbitrary leading batch dimensions.
 
-Counterpart of rover_slam_tpu/geometry/lie.py (SO(3) and SE(3) parts; Sim(3)
-belongs to loop closing, a later slice). Rotations are 3x3 matrices,
-translations 3-vectors; small-angle branches use `torch.where` with safe
-denominators exactly as the JAX package does.
+Counterpart of rover_slam_tpu/geometry/lie.py: SO(3), SE(3) and Sim(3).
+Rotations are 3x3 matrices, translations 3-vectors; small-angle branches use
+`torch.where` with safe denominators exactly as the JAX package does, so the
+functions also run under `torch.func` transforms (the pose graph takes their
+forward-mode Jacobians).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..optim.blockinv import inv3
 
 _EPS = 1e-8
 
@@ -103,12 +106,15 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
-    """Project a near-rotation onto SO(3) via SVD."""
-    U, _, Vt = torch.linalg.svd(R)
+    """Project a near-rotation onto SO(3) via SVD. A non-finite input gives
+    NaN, as the JAX package's SVD returns it (torch's SVD raises on one):
+    an LM step that diverged is then rejected by its cost test."""
+    finite = torch.isfinite(R).all(dim=-1).all(dim=-1)[..., None, None]
+    U, _, Vt = torch.linalg.svd(torch.where(finite, R, _eye(R)))
     det = torch.linalg.det(U @ Vt)
     one = torch.ones_like(det)
     D = torch.stack([one, one, det], dim=-1)
-    return (U * D[..., None, :]) @ Vt
+    return torch.where(finite, (U * D[..., None, :]) @ Vt, torch.nan)
 
 
 def se3_exp(xi: torch.Tensor):
@@ -138,3 +144,69 @@ def se3_compose(Ra, ta, Rb, tb):
 def se3_apply(R, t, X):
     """Transform points X[..., 3]."""
     return torch.einsum("...ij,...j->...i", R, X) + t
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (s scalar, R, t). Acts as X -> s R X + t.
+# ---------------------------------------------------------------------------
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The [..., 3, 3] matrix W(sigma, phi) with t = W rho (Sophus calcW)."""
+    s = torch.exp(sigma)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = so3_hat(phi)
+    W2 = W @ W
+    small_sigma = torch.abs(sigma) < 1e-5
+    small_theta = theta < 1e-5
+    sigma_safe = torch.where(small_sigma, torch.ones_like(sigma), sigma)
+    theta_safe = torch.where(small_theta, torch.ones_like(theta), theta)
+    c0 = torch.where(small_sigma, torch.ones_like(s), (s - 1.0) / sigma_safe)
+    a_ = s * torch.sin(theta)
+    b_ = s * torch.cos(theta)
+    denom = sigma_safe * sigma_safe + theta_safe * theta_safe
+    c1_gen = (sigma_safe * a_ + (1.0 - b_) * theta_safe) / (theta_safe * denom)
+    c2_gen = (c0 - ((b_ - 1.0) * sigma_safe + a_ * theta_safe) / denom) \
+        / (theta_safe * theta_safe)
+    _, B0, C0 = _sinc_coeffs(theta2)
+    # theta -> 0 with sigma generic.
+    c1_th0 = torch.where(small_sigma, torch.full_like(s, 0.5),
+                         ((sigma_safe - 1.0) * s + 1.0) / (sigma_safe * sigma_safe))
+    c2_th0 = torch.where(
+        small_sigma, torch.full_like(s, 1.0 / 6.0),
+        (s * (0.5 * sigma_safe * sigma_safe - sigma_safe + 1.0) - 1.0) / (sigma_safe ** 3))
+    c1 = torch.where(small_sigma, B0, torch.where(small_theta, c1_th0, c1_gen))
+    c2 = torch.where(small_sigma, C0, torch.where(small_theta, c2_th0, c2_gen))
+    return (c0[..., None, None] * _eye(phi) + c1[..., None, None] * W
+            + c2[..., None, None] * W2)
+
+
+def sim3_exp(xi: torch.Tensor):
+    """xi = [rho(3), phi(3), sigma(1)] -> (s, R, t), s = exp(sigma)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    t = torch.einsum("...ij,...j->...i", _sim3_W(phi, sigma), rho)
+    return torch.exp(sigma), so3_exp(phi), t
+
+
+def sim3_log(s, R, t) -> torch.Tensor:
+    """Inverse of sim3_exp: rho solves W rho = t through the closed-form 3x3
+    inverse (no solver whose error check would sync with the host)."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = torch.einsum("...ij,...j->...i", inv3(_sim3_W(phi, sigma)), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_inverse(s, R, t):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    """(sa,Ra,ta) * (sb,Rb,tb): X -> sa Ra (sb Rb X + tb) + ta."""
+    return sa * sb, Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def sim3_apply(s, R, t, X):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, X) + t

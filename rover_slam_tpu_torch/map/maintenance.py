@@ -1,9 +1,9 @@
 """Map maintenance: neighbourhood fusion, representative descriptors,
-visibility statistics, exact observation counts, landmark culling and
-keyframe culling.
+visibility statistics, exact observation counts, landmark culling, keyframe
+culling and the global bundle adjustment.
 
-Counterpart of rover_slam_tpu/map/maintenance.py without the global BA
-(which belongs to the loop-closing slice).
+Counterpart of rover_slam_tpu/map/maintenance.py. The multi-device global BA
+(mesh=) comes with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from ..geometry import cameras
 from ..ops import association as assoc
 from ..ops import scatterless
+from ..optim import ba
 from . import map_state as ms
 
 
@@ -229,3 +230,94 @@ def update_found_visible(state: ms.MapState, visible_mask, found_mask) -> ms.Map
     """Landmark statistics (reference MapPoint::IncreaseVisible/Found)."""
     return state.replace(lm_visible=state.lm_visible + visible_mask.to(torch.int32),
                          lm_found=state.lm_found + found_mask.to(torch.int32))
+
+
+def _build_global_problem(state: ms.MapState, cam_params, e_cap: int | None = None):
+    """Full-map BA problem: every (keyframe, keypoint slot) observation of an
+    active landmark. e_cap compacts the edge list to a static size with an
+    order-preserving gather padded by edge 0 (jnp.nonzero(size=e_cap,
+    fill_value=0)). Returns (problem, gather indices or None)."""
+    K, N, L = state.K, state.N, state.L
+    dev = state.device
+    li = state.kf_landmark_idx
+    has = (li >= 0) & state.kf_kpt_valid & state.kf_active[:, None]
+    e_lm = torch.where(has, li, 0).reshape(-1).long().clamp(0, L - 1)
+    e_valid = has.reshape(-1) & state.lm_active[e_lm]
+    e_kf = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
+    e_uv = state.kf_kpts.reshape(-1, 2)
+    idx = None
+    if e_cap is not None and e_cap < K * N:
+        idx = scatterless.nonzero_static(e_valid, e_cap, 0)
+        n_val = torch.sum(e_valid)
+        e_kf, e_lm, e_uv = e_kf[idx], e_lm[idx], e_uv[idx]
+        e_valid = torch.arange(e_cap, device=dev) < n_val
+    prob = ba.BAProblem(
+        R_cw=state.kf_R_cw, t_cw=state.kf_t_cw,
+        pose_opt_mask=state.kf_active & (torch.arange(K, device=dev) != 0),
+        lm_pos=state.lm_pos, lm_opt_mask=state.lm_active, cam_params=cam_params,
+        e_kf=e_kf.to(torch.int32), e_lm=e_lm.to(torch.int32), e_uv=e_uv, e_valid=e_valid,
+        e_info=torch.ones(e_valid.shape, dtype=torch.float32, device=dev))
+    return prob, idx
+
+
+# (e_cap, lm_cap) ladder of the compacted global BA: the host picks the
+# smallest level that fits the live map with ~30 % headroom.
+GBA_LEVELS = ((16384, 4096), (65536, 8192), (262144, 16384), (1048576, 65536))
+
+
+def gba_level_for(n_edges: int) -> int:
+    for i, (e_cap, _) in enumerate(GBA_LEVELS):
+        if n_edges * 1.3 <= e_cap:
+            return i
+    return len(GBA_LEVELS) - 1
+
+
+def count_global_edges(state: ms.MapState) -> int:
+    """Live observation count (one host read; once per fired loop)."""
+    li = state.kf_landmark_idx
+    has = (li >= 0) & state.kf_kpt_valid & state.kf_active[:, None]
+    lm = torch.where(has, li, 0).long().clamp(0, state.L - 1)
+    return int(torch.sum(has & state.lm_active[lm]))
+
+
+def _global_ba_single(state: ms.MapState, cam_params, cam_kind: int, iters: int,
+                      e_cap: int | None = None, lm_cap: int | None = None) -> ms.MapState:
+    K, N, L = state.K, state.N, state.L
+    if e_cap is not None and e_cap >= K * N:
+        e_cap = None
+    if lm_cap is not None and lm_cap >= L:
+        lm_cap = None
+    prob, idx = _build_global_problem(state, cam_params, e_cap=e_cap)
+    # kf_major=True as in the JAX package, also for the compacted edge list,
+    # whose rows are not keyframe-major: the pose-side sums then group edges
+    # by position (ROADMAP.md §C), and the port reproduces that.
+    res = ba.solve_ba(prob, cam_kind=cam_kind, iters=iters, cg_iters=25, solver="pcg",
+                      phases=2, lm_cap=lm_cap)
+    bad = (~res.e_inlier) & prob.e_valid
+    if idx is not None:
+        # Padding gathers edge 0 and writes after the real edges: the last
+        # write wins, as the JAX package's scatter resolves it on the CPU.
+        last = torch.full((K * N,), -1, dtype=torch.long, device=bad.device)
+        last = last.scatter_reduce(0, idx, torch.arange(idx.shape[0], device=bad.device),
+                                   reduce="amax")
+        bad = torch.where(last >= 0, bad[last.clamp(min=0)], False)
+    li_new = torch.where(bad.reshape(K, N), -1, state.kf_landmark_idx)
+    return state.replace(kf_R_cw=res.R_cw, kf_t_cw=res.t_cw, lm_pos=res.lm_pos,
+                         kf_landmark_idx=li_new)
+
+
+def global_ba(state: ms.MapState, cam_params, cam_kind: int = cameras.PINHOLE,
+              iters: int = 10, mesh=None, level: int | None = None) -> ms.MapState:
+    """Full-map bundle adjustment (reference GlobalBundleAdjustemnt after a
+    loop closure): LM with the PCG solver over every active keyframe and
+    landmark, at the compaction level `level` of GBA_LEVELS (None: the whole
+    padded edge table)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "The landmark-sharded global BA (mesh=) is not ported yet: it comes "
+            "with the multi-device (A17) slice of the PyTorch port (see ROADMAP.md)")
+    e_cap = lm_cap = None
+    if level is not None:
+        e_cap, lm_cap = GBA_LEVELS[min(level, len(GBA_LEVELS) - 1)]
+    return _global_ba_single(state, cam_params, cam_kind=cam_kind, iters=iters,
+                             e_cap=e_cap, lm_cap=lm_cap)

@@ -18,6 +18,7 @@ partials merged in column order) or the call raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -34,6 +35,7 @@ MAX_DEPTH = 512    # the kernel keeps 192 rows of depth D in shared memory
 # Reduces since the last reset (chip_smoke.py reads and resets it); one reduce
 # is two kernel launches, the column splits and their merge.
 nn_launches = 0
+launches_by_shape = collections.Counter()   # "N0xN1xD" -> reduces
 
 
 def nn_reduce_plain(desc0, desc1, valid1):
@@ -140,6 +142,7 @@ def _launch(desc0, desc1, valid1):
                                N0, N1, D + pad, split_cols, stream)
     _build.check(status, "nn_matcher")
     nn_launches += 1
+    launches_by_shape[f"{N0}x{N1}x{D}"] += 1
     return best, idx, second
 
 

@@ -1,16 +1,20 @@
-"""Windowed bundle adjustment: Levenberg-Marquardt with exact landmark
-elimination (Schur complement) and a direct reduced-camera solve.
+"""Bundle adjustment: Levenberg-Marquardt with exact landmark elimination
+(Schur complement and a direct reduced-camera solve) for the windowed BA, or
+matrix-free block-Jacobi PCG for the global BA.
 
 Counterpart of rover_slam_tpu/optim/ba.py (`solve_ba`) with the options the
-keyframe insert uses: solver="schur", red_solver="direct", kf_major=True,
-lm_cap, two phases with a hard chi2 outlier drop between them. The `lax.scan`
-over LM steps becomes a Python loop; the JAX package's one-hot segment sums
-are sorted segment sums here (`ops/scatterless.py`: same sums, another but
-fixed order, so a solve repeats to the bit). The matrix-free PCG solver of
-the global BA belongs to the loop-closing slice.
+two callers use: solver="schur" with red_solver="direct" (the keyframe
+insert) and solver="pcg" (`map/maintenance.py::global_ba`), kf_major=True,
+lm_cap, two phases with a hard chi2 outlier drop between them. The
+`lax.scan` over LM and CG steps becomes a Python loop whose scalars stay on
+the device; the JAX package's landmark-side segment sums are sorted segment
+sums here (`ops/scatterless.py`: same sums, another but fixed order, so a
+solve repeats to the bit).
 
 kf_major is a contract on the edge list: edge rows [k*N, (k+1)*N) belong to
-window keyframe k, so pose-side sums are reshape-sums.
+window keyframe k, so pose-side sums are reshape-sums. As in the JAX package
+the pose-side reductions are reshape-sums whenever kf_major is set, whatever
+layout the caller passes (see global_ba).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 from ..geometry import lie, cameras
 from ..ops.scatterless import SegmentPlan, nonzero_static, seg_sum, segment_plan
 from . import robust
-from .blockinv import inv3, chol3, invn
+from .blockinv import inv3, inv6, chol3, invn
 
 
 class BAProblem(NamedTuple):
@@ -59,7 +63,12 @@ def _edge_terms(cam_kind, prob: BAProblem, R, t, X):
 
 def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
              chi2_th: float = robust.CHI2_MONO, lam0: float = 1e-4,
-             phases: int = 2, lm_cap: int | None = None) -> BAResult:
+             phases: int = 2, lm_cap: int | None = None, solver: str = "schur",
+             cg_iters: int = 20) -> BAResult:
+    """solver "schur": exact landmark elimination, direct reduced solve;
+    "pcg": cg_iters of block-Jacobi preconditioned CG on the full system."""
+    if solver not in ("schur", "pcg"):
+        raise ValueError(f"unknown BA solver {solver!r}")
     Kw = prob.R_cw.shape[0]
     L_full = prob.lm_pos.shape[0]
     dev = prob.lm_pos.device
@@ -91,7 +100,7 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
     n = 6 * Kw
-    eye_n = torch.eye(n, device=dev)
+    eye_n = torch.eye(n, device=dev) if solver == "schur" else None
     ar_k = torch.arange(Kw, device=dev)
 
     def seg_c(vals):
@@ -101,8 +110,11 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
     # kf), made once per solve: sorted by that key the edges are also sorted
     # by landmark, so every Kw-th offset bounds one landmark's edges. Edges of
     # the fixed/overflow bucket (e_lmv == Lw) sort last and are left out.
-    plan_lk = segment_plan(e_lmv * Kw + e_kf, Lw * Kw)
-    plan_l = SegmentPlan(plan_lk.order, plan_lk.offsets[::Kw])
+    if solver == "schur":
+        plan_lk = segment_plan(e_lmv * Kw + e_kf, Lw * Kw)
+        plan_l = SegmentPlan(plan_lk.order, plan_lk.offsets[::Kw])
+    else:
+        plan_l = segment_plan(e_lmv, Lw)
 
     def seg_l(vals):
         return seg_sum(plan_l, vals)
@@ -128,7 +140,15 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         Hll_d = torch.where(lmask[:, :, None] > 0, Hll_d, eye3)
         Pl = inv3(Hll_d + 1e-9 * eye3)
         b_c, b_l = -g_c, -g_l
+        if solver == "pcg":
+            dx_c, dx_l = _pcg(Jc, Jl, w, e_kf, e_lmv, seg_c, seg_l, pmask, lmask,
+                              lam * torch.clamp(dc, min=1e-6), lam * torch.clamp(dl, min=1e-6),
+                              inv6(Hcc_d + 1e-9 * eye6), Pl, b_c, b_l, cg_iters)
+        else:
+            dx_c, dx_l = schur(Jc, Jl, w, Hcc_d, Pl, b_c, b_l)
+        return apply_step(prob, R, t, X, lam, dx_c, dx_l, chi2)
 
+    def schur(Jc, Jl, w, Hcc_d, Pl, b_c, b_l):
         # Exact Schur elimination: with Pl = L L^T the cross term
         # sum_l W_l Pl W_l^T is B B^T for B = [W_l L]_l.
         Wt = seg_cross(torch.einsum("eki,e,ekj->eij", Jc, w, Jl))
@@ -154,7 +174,9 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         dx_c = (y / d_eq).reshape(Kw, 6) * pmask
         dx_l = torch.einsum("lbc,lc->lb", Pl,
                             b_l - torch.einsum("lkab,ka->lb", Wt, dx_c)) * lmask
+        return dx_c, dx_l
 
+    def apply_step(prob, R, t, X, lam, dx_c, dx_l, chi2):
         dR, dt = lie.se3_exp(dx_c)
         R_new = lie.normalize_rotation(torch.einsum("kij,kjl->kil", dR, R))
         t_new = torch.einsum("kij,kj->ki", dR, t) + dt
@@ -178,7 +200,12 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0), 1e-8, 1e4)
         return R, t, X, lam
 
+    # The chi2 drop between phases reaches only the returned inlier mask:
+    # the LM steps of every phase run on the caller's edges. That is what
+    # the JAX package computes, whose lax.scan reuses the first phase's trace
+    # of the LM step and with it the first phase's edge mask (ROADMAP.md §C).
     R, t, X = prob.R_cw, prob.t_cw, prob.lm_pos
+    valid = prob.e_valid
     for phase in range(phases):
         lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
         for _ in range(iters):
@@ -186,9 +213,51 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
         if phase < phases - 1:
             e_p, _, _, depth_p = _edge_terms(cam_kind, prob, R, t, X)
             chi2_p = torch.sum(e_p * e_p, dim=-1) * prob.e_info
-            keep = (chi2_p <= delta2) & (depth_p > 0)
-            prob = prob._replace(e_valid=prob.e_valid & keep)
+            valid = valid & (chi2_p <= delta2) & (depth_p > 0)
     e, _, _, depth = _edge_terms(cam_kind, prob, R, t, X)
     chi2 = torch.sum(e * e, dim=-1) * prob.e_info
-    inlier = (chi2 <= delta2) & (depth > 0) & prob.e_valid
+    inlier = (chi2 <= delta2) & (depth > 0) & valid
     return BAResult(R_cw=R, t_cw=t, lm_pos=X, e_chi2=chi2, e_inlier=inlier)
+
+
+def _pcg(Jc, Jl, w, e_kf, e_lmv, seg_c, seg_l, pmask, lmask, lam_dc, lam_dl, Pc, Pl,
+         b_c, b_l, iters: int):
+    """Block-Jacobi PCG on the damped normal equations, matrix-free: each
+    matvec is two per-edge contractions and their segment sums. Fixed
+    variables have identity preconditioner blocks and masked products, so
+    they stay at zero."""
+    def matvec(v_c, v_l):
+        v_c = v_c * pmask
+        v_l = v_l * lmask
+        v_lp = torch.cat([v_l, v_l.new_zeros(1, 3)])
+        u = (torch.einsum("eki,ei->ek", Jc, v_c[e_kf])
+             + torch.einsum("eki,ei->ek", Jl, v_lp[e_lmv])) * w[:, None]
+        out_c = seg_c(torch.einsum("eki,ek->ei", Jc, u)) + lam_dc * v_c
+        out_l = seg_l(torch.einsum("eki,ek->ei", Jl, u)) + lam_dl * v_l
+        return out_c * pmask, out_l * lmask
+
+    def precond(r_c, r_l):
+        return (torch.einsum("kij,kj->ki", Pc, r_c) * pmask,
+                torch.einsum("lij,lj->li", Pl, r_l) * lmask)
+
+    def guard(v):
+        return torch.where(torch.abs(v) < 1e-20, torch.full_like(v, 1e-20), v)
+
+    x_c, x_l = torch.zeros_like(b_c), torch.zeros_like(b_l)
+    r_c, r_l = b_c, b_l
+    p_c, p_l = precond(b_c, b_l)
+    rz = torch.sum(b_c * p_c) + torch.sum(b_l * p_l)
+    for _ in range(iters):
+        Ap_c, Ap_l = matvec(p_c, p_l)
+        alpha = rz / guard(torch.sum(p_c * Ap_c) + torch.sum(p_l * Ap_l))
+        x_c = x_c + alpha * p_c
+        x_l = x_l + alpha * p_l
+        r_c = r_c - alpha * Ap_c
+        r_l = r_l - alpha * Ap_l
+        z_c, z_l = precond(r_c, r_l)
+        rz_new = torch.sum(r_c * z_c) + torch.sum(r_l * z_l)
+        beta = rz_new / guard(rz)
+        p_c = z_c + beta * p_c
+        p_l = z_l + beta * p_l
+        rz = rz_new
+    return x_c, x_l

@@ -1,15 +1,16 @@
 """System facade: the user-facing monocular SLAM API.
 
-Counterpart of rover_slam_tpu/slam/system.py (`MonocularSLAM`) without loop
-closing: per frame one track step and one flags fetch, then the host state
-machine (OK, RECENTLY_LOST with relocalization, LOST with a new Atlas map)
-and the keyframe decision; a keyframe insert runs triangulation, fusion and
-the windowed local BA on the device. With pipeline=K the keyframe decision
-and insert run inside the frame's device program (`_track_and_map_body`) and
-the host reads each frame's flags K frames later. Keyframe slots carry
-host-side uids so that culling and compaction, which recycle slots, keep the
-trajectory whole. Loop closing and the multi-device BA raise
-NotImplementedError naming their slice.
+Counterpart of rover_slam_tpu/slam/system.py (`MonocularSLAM`): per frame
+one track step and one flags fetch, then the host state machine (OK,
+RECENTLY_LOST with relocalization, LOST with a new Atlas map) and the
+keyframe decision; a keyframe insert runs triangulation, fusion and the
+windowed local BA on the device. With pipeline=K the keyframe decision and
+insert run inside the frame's device program (`_track_and_map_body`) and the
+host reads each frame's flags K frames later. Keyframe slots carry host-side
+uids so that culling and compaction, which recycle slots, keep the trajectory
+whole. With enable_loop_closing every keyframe goes through the loop closer
+(`slam/loop_closing.py`) and every finished frame polls it. The multi-device
+BA raises NotImplementedError naming its slice.
 """
 from __future__ import annotations
 
@@ -23,38 +24,13 @@ from .. import resolve_device
 from ..geometry import two_view
 from ..map import atlas
 from ..map import maintenance
+from ..map import keyframe_database as kdb
 from ..map import map_state as ms
 from ..ops import _build
 from ..utils.timing import StageTimers
 from . import tracking as T
-
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice of "
-        "the PyTorch port (see ROADMAP.md)")
-
-
-class HostCopy:
-    """A device tensor on its way to the host: the copy into pinned memory
-    is queued behind the work already on the stream and an event marks its
-    end, so reading it later waits only for that (the JAX package's
-    copy_to_host_async). On the CPU it is a plain copy."""
-
-    def __init__(self, t: torch.Tensor):
-        self.event = None
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t.clone()
-
-    def numpy(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+from .host_copy import HostCopy
+from .loop_closing import LoopCloser, _later
 
 
 class MonocularSLAM:
@@ -75,13 +51,15 @@ class MonocularSLAM:
         K frames later; the state machine lags K frames. Call flush() before
         reading final results.
 
+        enable_loop_closing: place recognition, Sim3 verification, loop
+        correction with global BA and map merging (loop_config: a
+        loop_closing.LoopConfig); the loop closer uses the matcher too.
+
         The RANSAC draws (init, relocalization) come from a torch.Generator
         seeded with 7 (the JAX package's PRNGKey(7)). device None means
         cuda."""
-        if enable_loop_closing or loop_config is not None:
-            raise _later("Loop closing", "loop-closing")
         if mesh is not None:
-            raise _later("Multi-device map-scale BA (mesh=)", "multi-device")
+            raise _later("Multi-device map-scale BA (mesh=)", "multi-device (A17)")
         self.device = resolve_device(device)
         self.cfg = config or T.TrackerConfig()
         self.matcher = matcher
@@ -95,6 +73,11 @@ class MonocularSLAM:
                                        device=self.device)
         K, N, L = map_capacity
         self.state = ms.empty_map(K=K, N=N, L=L, D=desc_dim, device=self.device)
+        self.loop_closer = None
+        if enable_loop_closing:
+            self.loop_closer = LoopCloser(self.cam_params, K, desc_dim, config=loop_config,
+                                          matcher=matcher, device=self.device)
+        self.loop_events = []         # (query kf, info) of every fired loop
         self.tracking_state = T.NO_IMAGES_YET
         self.velocity = None
         self.last_frame: Optional[T.FrameData] = None
@@ -281,6 +264,7 @@ class MonocularSLAM:
             with self.timers.stage("new_kf"):
                 self._insert_keyframe(frame)
         self._finishing_frame = None
+        self._poll_loop_closer()
         return {"state": self.tracking_state, "n_inliers": self._last_n_inl,
                 "pose": (frame.R_cw, frame.t_cw)}
 
@@ -313,15 +297,21 @@ class MonocularSLAM:
         return True
 
     def _reloc_candidates_matches(self, frame, n_cand: int = 3):
-        """With a learned matcher that batches: the n_cand most recent
-        keyframes (padded with the newest to a fixed batch) and ONE batched
-        match of the lost frame against them. Returns (cand_ids [B],
-        matches [B, N]) or None (global landmark-table relocalization).
-        With loop closing (a later slice) candidates come from place
-        recognition."""
+        """With a learned matcher that batches: n_cand candidate keyframes
+        (place recognition when loop closing is on, else the most recent
+        ones), padded with the first to a fixed batch, and ONE batched match
+        of the lost frame against them. Returns (cand_ids [B], matches
+        [B, N]) or None (global landmark-table relocalization)."""
         if self.matcher is None or not hasattr(self.matcher, "match_batch"):
             return None
-        ids = [i for i in range(self.n_kf - 1, self.n_kf - 1 - n_cand, -1) if i >= 0]
+        if self.loop_closer is not None and self.n_kf >= 1:
+            db = self.loop_closer.db
+            tf = kdb.bow_transform(db.vocab, frame.desc, frame.valid)
+            none_conn = torch.zeros((self.state.K,), dtype=torch.bool, device=self.device)
+            ids, _ = kdb.detect_candidates(db, tf, self.n_kf - 1, none_conn, n_best=n_cand)
+            ids = [int(i) for i in ids.cpu().numpy() if 0 <= i < self.n_kf]
+        else:
+            ids = [i for i in range(self.n_kf - 1, self.n_kf - 1 - n_cand, -1) if i >= 0]
         if not ids:
             return None
         ids += [ids[0]] * (n_cand - len(ids))
@@ -371,6 +361,10 @@ class MonocularSLAM:
         info = None
         while self._pending:
             info = self._finish_track(*self._pending.popleft())
+        if self.loop_closer is not None and self.n_kf >= 2:
+            self.state, linfo = self.loop_closer.finalize(self.state)
+            if linfo is not None:
+                self._handle_loop_info(linfo.get("query_kf", self.n_kf - 1), linfo)
         return info
 
     # ------------------------------------------------------------------
@@ -425,7 +419,17 @@ class MonocularSLAM:
         self.velocity = None
         self.frames_since_kf = 0
         self.last_frame = frame
+        # The init keyframes bypass the insert path: add them to the
+        # place-recognition database here.
+        self._register_init_kf_in_db(base)
+        self._register_init_kf_in_db(base + 1)
         return True
+
+    def _register_init_kf_in_db(self, kf_id: int):
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.db = kdb.db_add(lc.db, kf_id, self.state.kf_desc[kf_id].float(),
+                               self.state.kf_kpt_valid[kf_id])
 
     def _predict_pose(self):
         """Constant-velocity motion model."""
@@ -461,8 +465,9 @@ class MonocularSLAM:
     def precompile(self):
         """Run the steady-state paths once on a copy of the state before a
         timed region: the kernel builds, cuBLAS/cuDNN plans and allocator
-        pools of the fused track+map program (pipeline mode) and of
-        relocalization. Call after bootstrap (needs a tracked frame)."""
+        pools of the fused track+map program (pipeline mode), of the loop
+        closer's programs and of relocalization. Call after bootstrap (needs
+        a tracked frame)."""
         if self.device.type == "cuda":
             _build.build()
             for name in _build.SOURCES:
@@ -470,7 +475,7 @@ class MonocularSLAM:
         prev = self.last_frame
         if prev is None or prev.R_cw is None:
             return
-        state_c =ms.MapState(**{k: getattr(self.state, k).clone() for k in ms.FIELDS})
+        state_c = ms.MapState(**{k: getattr(self.state, k).clone() for k in ms.FIELDS})
         prev_lidx = prev.landmark_idx if prev.landmark_idx is not None \
             else torch.full((self.state.N,), -1, dtype=torch.int32, device=self.device)
         if self.pipeline:
@@ -481,6 +486,8 @@ class MonocularSLAM:
                                    prev.kpts, prev.desc, prev.valid)
             self._dispatch_fused(state_c, policy, state_c.lm_active.clone(), prev, prev_lidx,
                                  prev, prev.R_cw, prev.t_cw, ext)
+        if self.loop_closer is not None:
+            self.loop_closer.precompile(state_c)
         if self.n_kf >= 2:
             gen = torch.Generator().manual_seed(0)   # leaves the run's draws alone
             ext = self._reloc_candidates_matches(prev)
@@ -500,7 +507,7 @@ class MonocularSLAM:
             self.n_kf += 1
             self.frames_since_kf = 0
             self.ref_kf_tracked = max(n_inl, 20)
-            self._post_insert_hooks()
+            self._post_insert_hooks(self.n_kf - 1)
 
     def _check_capacity_pressure(self, n_kf_dev: int):
         """Pipeline mode: ask for a compaction at the next flush boundary
@@ -578,15 +585,35 @@ class MonocularSLAM:
         self.ref_kf_tracked = max(self._last_n_inl, 20)
         # Read by the next keyframe decision (n_lm for the capacity check).
         self._kf_scalars = HostCopy(scalars)
-        self._post_insert_hooks()
+        self._post_insert_hooks(self.n_kf - 1)
 
-    def _post_insert_hooks(self):
-        """Per-keyframe follow-up of both insert paths: the cull cadence."""
+    def _post_insert_hooks(self, kf_id: int):
+        """Per-keyframe follow-up of both insert paths: the cull cadence,
+        then the loop closer."""
         if (self.cfg.kf_cull_every > 0 and self.n_kf >= 6
                 and self.n_kf % self.cfg.kf_cull_every == 0):
             self.state, _, redirect = maintenance.cull_keyframes_ex(
                 self.state, redundancy=self.cfg.kf_cull_redundancy)
             self._record_cull_redirects(redirect)
+        if self.loop_closer is not None:
+            with self.timers.stage("place_recog"):
+                self.state, linfo = self.loop_closer.on_keyframe(self.state, kf_id)
+            self._handle_loop_info(kf_id, linfo)
+
+    def _handle_loop_info(self, kf_id: int, linfo):
+        if linfo and linfo.get("loop"):
+            # Landmarks moved and were fused: rebuild the search mask.
+            self._local_mask = None
+            self.loop_events.append((kf_id, linfo))
+
+    def _poll_loop_closer(self):
+        """Per-frame progress of the loop closer; never waits on the card."""
+        if self.loop_closer is None or self.n_kf < 2:
+            return
+        with self.timers.stage("place_recog"):
+            self.state, linfo = self.loop_closer.poll(self.state)
+        if linfo is not None:
+            self._handle_loop_info(linfo.get("query_kf", self.n_kf - 1), linfo)
 
     # ------------------------------------------------------------------
     def _log_pose(self, frame):
@@ -722,3 +749,21 @@ class MonocularSLAM:
                 continue
             seen.add(id(f))
             f.landmark_idx = ms.remap_landmark_refs(f.landmark_idx, lm_o2n)
+        if self.loop_closer is not None:
+            # The database rows and the open hypothesis follow the slots;
+            # queued packs hold old slot ids and are dropped.
+            lc = self.loop_closer
+            olds = np.nonzero(live)[0]
+            perm = np.zeros((self.state.K,), np.int64)
+            perm[:len(olds)] = olds
+            new_live = np.arange(self.state.K) < len(olds)
+            lc.db = kdb.db_permute(lc.db, torch.as_tensor(perm, device=self.device),
+                                   torch.as_tensor(new_live, device=self.device))
+            lc.on_compaction()
+            hyp = lc._hyp
+            if hyp is not None:
+                c, q = int(kf_map[hyp["cand"]]), int(kf_map[hyp["q_last"]])
+                if c < 0 or q < 0:
+                    lc._hyp = None
+                else:
+                    hyp["cand"], hyp["q_last"] = c, q

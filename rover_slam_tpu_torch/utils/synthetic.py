@@ -66,6 +66,21 @@ def make_world(n_landmarks=4000, desc_dim=64, seed=0,
     return SyntheticWorld(pts, d, cam, cameras.PINHOLE, image_hw)
 
 
+def ring_world(n_landmarks=6000, desc_dim=64, seed=0, radius=12.0, height=4.0,
+               image_hw=(480, 640)) -> SyntheticWorld:
+    """Landmarks on a cylinder wall around the orbit: every viewpoint of
+    orbit_trajectory sees texture (the loop-closure scene)."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, 2 * np.pi, n_landmarks)
+    r = radius + rng.uniform(-1.0, 1.0, n_landmarks)
+    y = rng.uniform(-height, height, n_landmarks)
+    pts = np.stack([r * np.sin(th), y, r * np.cos(th)], 1).astype(np.float32)
+    d = rng.normal(size=(n_landmarks, desc_dim)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cam = _pinhole(458.654, 457.296, 367.215, 248.375)
+    return SyntheticWorld(pts, d, cam, cameras.PINHOLE, image_hw)
+
+
 def forward_trajectory(n_frames=60, dt=0.1, speed=0.5, yaw_rate=0.05, seed=1,
                        lateral=0.6):
     """Forward + lateral motion with gentle yaw and jitter.

@@ -1,7 +1,9 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
 chip_smoke.py, profile_port.py or tests/test_torch_cuda.py) imports JAX,
-Flax, Optax or the JAX package, its entry points default to the card, and
-what it has not ported raises (loop closing, the multi-device BA)."""
+Flax, Optax or the JAX package, its shipped codebooks are plain arrays, its
+entry points default to the card, and what it has not ported raises naming
+its slice (the multi-device BA, and on the loop path the stereo and the
+inertial variants)."""
 import ast
 import pathlib
 
@@ -9,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from rover_slam_tpu_torch.map import keyframe_database, maintenance
+from rover_slam_tpu_torch.optim import pose_graph
+from rover_slam_tpu_torch.slam.loop_closing import LoopCloser, LoopConfig
 from rover_slam_tpu_torch.slam.system import MonocularSLAM
 from rover_slam_tpu_torch.slam.tracking import TrackerConfig
 
@@ -47,6 +52,23 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_loop_closing_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("slam/loop_closing.py", "map/keyframe_database.py", "optim/sim3_solver.py",
+              "optim/pose_graph.py", "utils/config.py", "slam/host_copy.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
+
+
+def test_codebook_asset_holds_plain_arrays():
+    """The shipped codebooks load without pickle (nothing of JAX or of the
+    JAX package inside), one [D, 2048] float32 array per entry."""
+    with np.load(keyframe_database.ASSET, allow_pickle=False) as z:
+        assert sorted(z.files) == ["d256_w2048_s3", "d64_w2048_s3"]
+        for k in z.files:
+            a = z[k]
+            assert a.dtype == np.float32 and a.shape == (int(k[1:k.index("_")]), 2048)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert MonocularSLAM(CAM, device=None).device.type == "cuda"
@@ -56,19 +78,44 @@ def test_entry_points_default_to_cuda():
     assert MonocularSLAM(CAM, device="cpu").state.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object(), enable_loop_closing=True),
+                                dict(mesh=object())])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         MonocularSLAM(CAM, device="cpu", **kw)
 
 
+def test_loop_path_variants_raise():
+    """mesh= (multi-device, A17), the 4-DoF pose graph (inertial, A15) and
+    stereo bf (A16) on the loop path."""
+    with pytest.raises(NotImplementedError, match="A17"):
+        LoopCloser(CAM, 8, 64, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A17"):
+        MonocularSLAM(CAM, device="cpu", mesh=object())
+    lc = LoopCloser(CAM, 8, 64, config=LoopConfig(), device="cpu")
+    assert lc.bf is None and lc.pose_graph_mode == "sim3"
+    with pytest.raises(NotImplementedError, match="A16"):
+        lc.bf = 400.0
+    with pytest.raises(NotImplementedError, match="A15"):
+        lc.use_4dof = True
+    with pytest.raises(NotImplementedError, match="A15"):
+        pose_graph.optimize_pose_graph_4dof(None)
+    slam = MonocularSLAM(CAM, device="cpu", map_capacity=(8, 16, 64))
+    with pytest.raises(NotImplementedError, match="A17"):
+        maintenance.global_ba(slam.state, slam.cam_params, mesh=object())
+
+
 @pytest.mark.parametrize("kw", [dict(pipeline=4), dict(pipeline=True),
-                                dict(config=TrackerConfig(kf_cull_every=4))])
+                                dict(config=TrackerConfig(kf_cull_every=4)),
+                                dict(pipeline=4, enable_loop_closing=True,
+                                     loop_config=LoopConfig(min_covis_weight=30))])
 def test_lifecycle_options_are_ported(kw):
-    """pipeline=K and keyframe culling build a system (their parity tests are
-    tests/test_torch_system_*.py); without a card, cuda still raises."""
+    """pipeline=K, keyframe culling and loop closing build a system (their
+    parity tests are tests/test_torch_system_*.py and
+    tests/test_torch_loop_*.py); without a card, cuda still raises."""
     slam = MonocularSLAM(CAM, device="cpu", **kw)
     assert slam.pipeline_depth == (4 if "pipeline" in kw else 0)
+    assert (slam.loop_closer is not None) == ("enable_loop_closing" in kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MonocularSLAM(CAM, device=None, **kw)

@@ -2,6 +2,8 @@
 a map between the port's MapState and the JAX package's, compare the two,
 and build a mid-sequence map with the port."""
 import dataclasses
+import functools
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,6 +11,12 @@ import torch
 
 from rover_slam_tpu.map import map_state as jms
 from rover_slam_tpu_torch.map import map_state as tms
+
+# pytest-xdist workers share the cores: torch in each would start one thread
+# per core, and six workers on eight cores then oversubscribe the CPU many
+# times over (the port's map-sized tensor ops run on every thread).
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 POSE = dict(atol=1e-4, rtol=0)
 POINT = dict(atol=1e-3, rtol=0)
@@ -174,3 +182,91 @@ def check_compaction_scene(runs):
     assert t["ate"] < 0.2 and abs(t["ate"] - j["ate"]) < 0.01, (t["ate"], j["ate"])
     assert abs(t["slam"].n_kf - j["slam"].n_kf) <= 0.3 * j["slam"].n_kf
     assert abs(t["slam"]._next_uid - j["slam"]._next_uid) <= 0.3 * j["slam"]._next_uid
+
+
+def ring_orbit_frames(n_frames=70, revs=1.25, n_kpts=512):
+    """tests/test_loop_closing_e2e.py's loop scene: the ring world (6000
+    landmarks, 64-D), an orbit that returns to its start."""
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.ring_world(n_landmarks=6000, desc_dim=64, seed=0)
+    R_gt, t_gt, times = synthetic.orbit_trajectory(n_frames=n_frames, revs=revs)
+    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=n_kpts,
+                                       pix_noise=0.5, desc_noise=0.05)
+    return world, frames, (R_gt, t_gt, times)
+
+
+@functools.lru_cache(maxsize=1)
+def _ring_orbit_fields(n_frames, n_kpts):
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    from rover_slam_tpu_torch.slam.tracking import TrackerConfig
+    world, frames, _ = ring_orbit_frames(n_kpts=n_kpts)
+    slam = MonocularSLAM(world.cam_params, map_capacity=(64, n_kpts, 8192), desc_dim=64,
+                         config=TrackerConfig(local_map_only=True), device="cpu")
+    feed(slam, frames[:n_frames])
+    assert slam.tracking_state == 2
+    return {k: getattr(slam.state, k).numpy().copy() for k in tms.FIELDS}
+
+
+def ring_orbit_state(n_frames=62, n_kpts=512) -> tms.MapState:
+    """The map the port builds (loop closing off) over the loop scene's
+    first n_frames of 70 (1.25 revolutions), n_kpts keypoints a frame, on
+    tables (64, n_kpts, 8192): at 62 its newest keyframe revisits the first
+    ones."""
+    return tms.map_state_from_numpy(_ring_orbit_fields(n_frames, n_kpts))
+
+
+MERGE_DELTA = np.array([0.09, 0.0, -0.07], np.float32)   # tests/test_multisession.py
+
+
+def warped_session(n_frames=32, revs=0.32, seed=9):
+    """Session one over a ring arc, its map warped by MERGE_DELTA * ramp(kf id)
+    (zero at the seam, full past keyframe 4), then session two's first
+    frames tracked into a fresh map (times + 500 s)."""
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    from rover_slam_tpu_torch.slam.tracking import TrackerConfig
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.ring_world(n_landmarks=6000, desc_dim=64, seed=seed)
+    R_gt, t_gt, times = synthetic.orbit_trajectory(n_frames=n_frames, revs=revs)
+    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=512, pix_noise=0.5,
+                                       desc_noise=0.05)
+    slam = MonocularSLAM(world.cam_params, map_capacity=(48, 512, 4096), desc_dim=64,
+                         config=TrackerConfig(local_map_only=True), device="cpu")
+    feed(slam, frames)
+    st = slam.state
+    n1 = slam.n_kf
+    ramp = np.clip((np.arange(st.K) - 1) / 3.0, 0.0, 1.0)
+    off = torch.from_numpy((ramp[:, None] * MERGE_DELTA[None, :]).astype(np.float32))
+    centers = -torch.einsum("kji,kj->ki", st.kf_R_cw, st.kf_t_cw)
+    t_new = -torch.einsum("kij,kj->ki", st.kf_R_cw, centers + off)
+    anchor = st.lm_anchor_kf.long().clamp(0, st.K - 1)
+    st = st.replace(
+        kf_t_cw=torch.where(torch.arange(st.K)[:, None] < n1, t_new, st.kf_t_cw),
+        lm_pos=torch.where(st.lm_active[:, None], st.lm_pos + off[anchor], st.lm_pos))
+    return world, frames, st, n1
+
+
+def merge_scene():
+    """tests/test_multisession.py's warped two-session scene at the moment
+    of a merge: the warped stored map, session two's keyframes in map 1,
+    the query keyframe, the stored keyframe closest in time to its view,
+    their Sim3 (the port's solve) and the stored map's keyframe mask."""
+    from rover_slam_tpu_torch.slam import loop_closing as tlc
+    from rover_slam_tpu_torch.slam.system import MonocularSLAM
+    from rover_slam_tpu_torch.slam.tracking import TrackerConfig
+    from rover_slam_tpu_torch.utils import config
+    world, frames, st_old, n1 = warped_session()
+    slam = MonocularSLAM(world.cam_params, map_capacity=(48, 512, 4096), desc_dim=64,
+                         config=TrackerConfig(local_map_only=True), device="cpu")
+    config.resume_atlas(slam, st_old)
+    feed(slam, frames[:8], dt=500.0)
+    st = slam.state
+    q = slam.n_kf - 1
+    assert int(st.kf_map_id[q]) == 1 and q >= n1 + 2
+    # The stored keyframe closest in time to the query's view.
+    t_q = float(st.kf_time[q]) - 500.0
+    c = int(np.argmin(np.abs(st.kf_time.numpy()[:n1] - t_q)))
+    ok, _, s, R, t, n_proj = tlc._sim3_pair_guided(st, q, c, torch.from_numpy(CAM),
+                                                   torch.Generator().manual_seed(0), 0, False)
+    assert bool(ok) and int(n_proj) >= 40
+    in_old = st.kf_active & (st.kf_map_id == 0)
+    return st, q, c, (s, R, t), in_old
