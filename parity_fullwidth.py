@@ -1,7 +1,8 @@
 """The JAX package and the PyTorch port, frame by frame, on the bench scene at
 full width, both on the CPU.
 
-    python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--out rows.json]
+    python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--inertial]
+                                [--out rows.json]
 
 The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
 480x640 frames rendered once with numpy at the bench's per-frame motion
@@ -29,8 +30,16 @@ its own map frame: first keyframe at the origin, median depth 1). At the end
 each system's ATE (scale-aligned Horn, evaluate_ate_scale's protocol), and
 with --loop each side's fired loops (query keyframe, candidate, inliers,
 scale, fused landmarks) and the loop closer's diagnostics (bench.py's
-loop_diag). A comparison script, not part of the port: it imports both
-packages.
+loop_diag). With --inertial both sides are MonocularInertialSLAMs on
+chip_smoke.py's path G: the trajectory is orbit_with_imu (radius 5 m, 1.1
+revolutions per 160 frames at 1/30 s, IMU at 200 Hz, camera = body, the IMU
+calibration of tests/test_e2e_inertial.py), tinit_s=2.0, loop closing on
+with LoopConfig(min_covis_weight=30, fix_scale=True); each frame's IMU
+samples are fed before it. The summary adds the frame at which each side's
+IMU initialized, the scale and gravity of each inertial-only solve, the final
+biases against the simulated ones, and the metric ATE (Horn without scale)
+beside the scale-aligned one, both over the frames after the init. A
+comparison script, not part of the port: it imports both packages.
 """
 from __future__ import annotations
 
@@ -111,6 +120,43 @@ def ate_cm(slam, R_gt, t_gt, times, trajectory):
     return float(trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0), len(pairs)
 
 
+IMU_CALIB = dict(sigma_g=1.7e-4 * np.sqrt(200.0), sigma_a=2e-3 * np.sqrt(200.0),
+                 walk_g=1.9e-5 / np.sqrt(200.0), walk_a=3e-3 / np.sqrt(200.0))
+BG_TRUE, BA_TRUE = (0.002, -0.001, 0.003), (-0.02, 0.03, 0.01)   # orbit_with_imu's
+
+
+def inertial_ate_cm(slam, gt_pos, times, after_time, trajectory):
+    """(metric ATE, scale-aligned ATE) in cm over the frames logged after
+    after_time: frames logged before the IMU init hold poses relative to
+    keyframes in the pre-alignment scale."""
+    est_t, est_R, est_tcw = slam.get_trajectory()
+    est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
+    pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times)
+             if est_t[i] > after_time and np.isfinite(est_pos[i]).all()]
+    if len(pairs) < 3:
+        return None, None
+    e = np.stack([est_pos[i] for i, _ in pairs])
+    g = np.stack([gt_pos[j] for _, j in pairs])
+    return (float(trajectory.ate_rmse(e, g, with_scale=False)[0] * 100.0),
+            float(trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0))
+
+
+def record_solves(module, sink):
+    """Wrap module.inertial_only_optimization to append each solve's
+    (scale, gravity direction Rwg @ [0, 0, -1], bg, ba) to sink."""
+    orig = module.inertial_only_optimization
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        sink.append({"scale": float(res.scale),
+                     "g_dir": [float(x) for x in np.asarray(res.Rwg)[:, 2] * -1.0],
+                     "bg": [float(x) for x in np.asarray(res.bg)],
+                     "ba": [float(x) for x in np.asarray(res.ba)]})
+        return res
+
+    module.inertial_only_optimization = recording
+
+
 def loop_report(slam) -> dict:
     """A system's fired loops and its loop closer's diagnostics."""
     lc = slam.loop_closer
@@ -135,6 +181,8 @@ def main():
     ap.add_argument("--pipeline", type=int, default=0, metavar="K")
     ap.add_argument("--loop", action="store_true",
                     help="loop closing on, LoopConfig(min_covis_weight=30) (bench.py's)")
+    ap.add_argument("--inertial", action="store_true",
+                    help="MonocularInertialSLAM on chip_smoke.py's path G scene")
     ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -168,8 +216,13 @@ def main():
     world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0, image_hw=(H, W),
                                        layout="ring", ring_orbit_radius=5.0)
     world = world._replace(cam_params=cam)
-    R_gt, t_gt, times = synthetic.orbit_trajectory(
-        n_frames=F, orbit_radius=5.0, revs=1.1 * F / 160.0, dt=1.0 / 30.0)
+    if args.inertial:
+        R_gt, t_gt, times, _, imu = synthetic.orbit_with_imu(
+            n_frames=F, orbit_radius=5.0, revs=1.1 * F / 160.0, dt=1.0 / 30.0, hz=200)
+        args.loop = True
+    else:
+        R_gt, t_gt, times = synthetic.orbit_trajectory(
+            n_frames=F, orbit_radius=5.0, revs=1.1 * F / 160.0, dt=1.0 / 30.0)
     t0 = time.perf_counter()
     imgs = [synthetic.render_photo_frame(world, R_gt[i], t_gt[i]).astype(np.float32) / 255.0
             for i in range(F)]
@@ -185,10 +238,25 @@ def main():
     j_ext = JSP(params=ckpt.load_params(sp_path), image_hw=(H, W), max_keypoints=NK)
     j_rec = Recorder(JLGF(JLG(params=ckpt.load_params(lg_path), num_kpts=NK, num_layers=9,
                               threshold=0.1), (H, W)))
+    lc_kw = dict(min_covis_weight=30, fix_scale=True) if args.inertial \
+        else dict(min_covis_weight=30)
+    solves = {"jax": [], "torch": []}
+    j_kw = t_kw = {}
+    if args.inertial:
+        from rover_slam_tpu.imu import preintegration as jpre
+        from rover_slam_tpu.optim import inertial_init as jii
+        from rover_slam_tpu.slam.inertial_system import MonocularInertialSLAM as JSLAM
+        from rover_slam_tpu_torch.optim import inertial_init as tii
+        from rover_slam_tpu_torch.slam.inertial_system import MonocularInertialSLAM as TSLAM
+        calib = jpre.ImuCalib(Rbc=jnp.eye(3), tbc=jnp.zeros(3),
+                              **{k: jnp.float32(v) for k, v in IMU_CALIB.items()})
+        j_kw = t_kw = dict(imu_calib=calib, tinit_s=2.0)
+        record_solves(jii, solves["jax"])
+        record_solves(tii, solves["torch"])
     j_slam = JSLAM(cam, config=jT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
                    desc_dim=D, pipeline=args.pipeline, enable_loop_closing=args.loop,
-                   loop_config=JLoopConfig(min_covis_weight=30) if args.loop else None,
-                   matcher=j_rec)
+                   loop_config=JLoopConfig(**lc_kw) if args.loop else None,
+                   matcher=j_rec, **j_kw)
     j_cam = jnp.asarray(cam)
 
     t_ext = TSP(params=load_flat_npz(sp_path), max_keypoints=NK, device="cpu")
@@ -196,14 +264,19 @@ def main():
                               device="cpu"), (H, W)))
     t_slam = TSLAM(cam, config=tT.TrackerConfig(**cfg_kw), map_capacity=CAPACITY,
                    desc_dim=D, pipeline=args.pipeline, enable_loop_closing=args.loop,
-                   loop_config=TLoopConfig(min_covis_weight=30) if args.loop else None,
-                   matcher=t_rec, device="cpu")
+                   loop_config=TLoopConfig(**lc_kw) if args.loop else None,
+                   matcher=t_rec, device="cpu", **t_kw)
     t_cam = torch.from_numpy(cam)
 
     rows = []
     secs = {"jax": 0.0, "torch": 0.0}
+    ready = {"jax": None, "torch": None}
     for i in range(F):
         j_rec.last = t_rec.last = None
+        if args.inertial and i > 0:
+            for slam in (j_slam, t_slam):
+                for a, g, t in zip(*imu[i - 1]):
+                    slam.feed_imu(a, g, t)
         t1 = time.perf_counter()
         out = j_ext(jnp.asarray(imgs[i][None]))
         kj = out["keypoints"][0]
@@ -234,6 +307,11 @@ def main():
                "n_kf": [int(j_slam.n_kf), int(t_slam.n_kf)],
                "centre_dist": dist,
                "s": [round(t2 - t1, 2), round(t3 - t2, 2)]}
+        if args.inertial:
+            for name, slam in (("jax", j_slam), ("torch", t_slam)):
+                if slam.imu_ready and ready[name] is None:
+                    ready[name] = i
+            row["imu_ready"] = [bool(j_slam.imu_ready), bool(t_slam.imu_ready)]
         rows.append(row)
         print(json.dumps(row), flush=True)
         if args.pipeline and i == 39:
@@ -267,6 +345,19 @@ def main():
     if args.loop:
         summary["loops"] = {name: loop_report(slam)
                             for name, slam in (("jax", j_slam), ("torch", t_slam))}
+    if args.inertial:
+        gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(F)])
+        summary["inertial"] = {}
+        for name, slam in (("jax", j_slam), ("torch", t_slam)):
+            after = float(times[ready[name]]) if ready[name] is not None else np.inf
+            metric, scaled = inertial_ate_cm(slam, gt_pos, times, after, trajectory)
+            summary["inertial"][name] = {
+                "imu_ready_frame": ready[name], "solves": solves[name],
+                "ate_metric_cm": metric, "ate_scaled_cm": scaled,
+                "bg": [float(x) for x in np.asarray(slam.bg)],
+                "ba": [float(x) for x in np.asarray(slam.ba)],
+                "bg_true": list(BG_TRUE), "ba_true": list(BA_TRUE),
+                "pose_graph_mode": slam.loop_closer.pose_graph_mode}
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,9 +1,11 @@
 """Where the frame time goes on the card: torch.profiler over a steady window
 of chip_smoke.py's full-width bench scene, synchronous (path A) or pipelined
-(path C: --pipeline 4 --frames 160), or over path E's fired loop.
+(path C: --pipeline 4 --frames 160), over path E's fired loop, or over the
+monocular-inertial system of path G (--inertial).
 
     python3 profile_port.py [--frames 60] [--window 20] [--pipeline K] [--out profile_out]
     python3 profile_port.py --loop --pipeline 4 --frames 160 [--out profile_out]
+    python3 profile_port.py --inertial --frames 160 --window 40 [--pipeline K]
     python3 profile_port.py --read-trace profile_out/profile_port_p4_loop_trace.json.gz
     python3 profile_port.py --ate-spread RUNS [--frames 80] [--pipeline K] [--deterministic]
 
@@ -24,6 +26,12 @@ run the deferred global-BA chunks (LoopConfig.gba_iters chunks of
 gba_chunk_iters iterations), plus two, and the final flush. Its output adds
 `loop_breakdown` (see loop_trace_breakdown), which --read-trace prints again
 from the trace file alone, without a device.
+
+With --inertial the scene and system are path G's (chip_smoke.PathG: the
+IMU samples fed before each frame, loop closing on); the window is the last
+--window frames, after the IMU init. The output adds `preintegration`: one
+frame's IMU window (its samples) preintegrated alone under the profiler,
+with its kernel launches and device time.
 
 With --ate-spread, it measures instead path A's trajectory error (path C's
 with --pipeline 4 --frames 160), RUNS runs through fresh systems for each
@@ -214,6 +222,22 @@ def loop_trace_breakdown(trace_gz: str, pcg_iters: int) -> dict:
     return out
 
 
+def preint_census(scene, slam) -> dict:
+    """The last frame's IMU window through the system's own preintegration,
+    alone under the profiler: its samples, kernel launches and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    acc, gyro, t = scene.imu[-1]
+    slam._imu_buf = [(a, g, float(s)) for a, g, s in zip(acc, gyro, t)]
+    slam._last_frame_time = float(t[0]) - float(t[1] - t[0])   # one sample period
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        slam._preintegrate_window()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"samples": len(t), "launches": len(kernels),
+            "device_ms": sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -225,6 +249,8 @@ def main():
     ap.add_argument("--loop", action="store_true",
                     help="path E's loop closer on; the window covers the fired loop and "
                          "the global-BA chunks after it")
+    ap.add_argument("--inertial", action="store_true",
+                    help="path G: the monocular-inertial system on the IMU orbit")
     ap.add_argument("--read-trace", default=None, metavar="TRACE_GZ",
                     help="print the --loop breakdown of a trace a --loop run wrote, and stop "
                          "(needs no device)")
@@ -253,7 +279,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     cs.phase_build()
-    scene = cs.PathA(dev, args.frames)
+    scene = cs.PathG(dev, args.frames) if args.inertial else cs.PathA(dev, args.frames)
     if args.deterministic and not args.ate_spread:
         warned = set()
 
@@ -296,7 +322,7 @@ def main():
         chunks = -(-lc_cfg.gba_iters // max(lc_cfg.gba_chunk_iters, 1))
         start, end = max(fire - 2, WARM), min(fire + chunks + 2, args.frames)
     window = end - start
-    slam = scene.new_slam(pipeline=args.pipeline, loop=args.loop)
+    slam = scene.new_slam(pipeline=args.pipeline, loop=args.loop or args.inertial)
     warm = min(start, WARM) if args.pipeline else start
     for i in range(warm):
         scene.step(slam, i)
@@ -356,6 +382,11 @@ def main():
         f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
     if args.loop:
         out["loop_breakdown"] = loop_trace_breakdown(trace + ".gz", pcg_iters)
+    if args.inertial:
+        out["imu_ready"] = slam.imu_ready
+        out["scale_log"] = slam.scale_log
+        out["stage_count"] = {k: v["count"] for k, v in slam.timers.summary().items()}
+        out["preintegration"] = preint_census(scene, slam)
     print(json.dumps(out, indent=1))
     os.system("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
 

@@ -1,9 +1,9 @@
 """Device-resident SLAM map as fixed-capacity padded tensors.
 
-Counterpart of rover_slam_tpu/map/map_state.py, for the monocular slice:
-`MapState` is a dataclass of tensors updated functionally with
-`dataclasses.replace` (the inertial and stereo fields of the JAX MapState
-belong to later slices). Observations are the table kf_landmark_idx[K, N]
+Counterpart of rover_slam_tpu/map/map_state.py, for the monocular and
+monocular-inertial slices: `MapState` is a dataclass of tensors updated
+functionally with `dataclasses.replace` (the stereo field of the JAX MapState
+belongs to a later slice). Observations are the table kf_landmark_idx[K, N]
 (keypoint slot -> landmark id or -1); covisibility is one product of the
 [K, L] observation indicator with itself. `compact_map` packs the live slots
 to the front of both tables and returns the renumbering.
@@ -16,8 +16,9 @@ import torch
 
 from ..ops import scatterless
 
-FIELDS = ("kf_R_cw", "kf_t_cw", "kf_time", "kf_kpts", "kf_rays", "kf_desc",
-          "kf_kpt_valid", "kf_landmark_idx", "kf_active", "kf_map_id",
+FIELDS = ("kf_R_cw", "kf_t_cw", "kf_R_wb", "kf_p_wb", "kf_v_wb", "kf_bg", "kf_ba",
+          "kf_time", "kf_kpts", "kf_rays", "kf_desc", "kf_kpt_valid", "kf_landmark_idx",
+          "kf_active", "kf_map_id",
           "kf_parent", "kf_loop_edges", "lm_pos", "lm_desc", "lm_normal", "lm_active",
           "lm_map_id", "lm_anchor_kf", "lm_n_obs", "lm_found", "lm_visible",
           "lm_first_kf", "n_kf", "n_lm", "active_map_id", "lm_dropped")
@@ -28,6 +29,11 @@ class MapState:
     # --- keyframes (capacity K, N keypoint slots each) ---
     kf_R_cw: torch.Tensor        # [K,3,3] world->camera rotation
     kf_t_cw: torch.Tensor        # [K,3]
+    kf_R_wb: torch.Tensor        # [K,3,3] body(IMU)->world rotation
+    kf_p_wb: torch.Tensor        # [K,3]
+    kf_v_wb: torch.Tensor        # [K,3] velocity
+    kf_bg: torch.Tensor          # [K,3] gyro bias
+    kf_ba: torch.Tensor          # [K,3] accel bias
     kf_time: torch.Tensor        # [K]
     kf_kpts: torch.Tensor        # [K,N,2] pixel coords
     kf_rays: torch.Tensor        # [K,N,3] bearing rays (z=1)
@@ -87,7 +93,9 @@ def empty_map(K: int = 256, N: int = 1024, L: int = 16384, D: int = 256,
 
     return MapState(
         kf_R_cw=torch.eye(3, device=device).repeat(K, 1, 1),
-        kf_t_cw=z(K, 3), kf_time=z(K), kf_kpts=z(K, N, 2), kf_rays=z(K, N, 3),
+        kf_t_cw=z(K, 3), kf_R_wb=torch.eye(3, device=device).repeat(K, 1, 1),
+        kf_p_wb=z(K, 3), kf_v_wb=z(K, 3), kf_bg=z(K, 3), kf_ba=z(K, 3),
+        kf_time=z(K), kf_kpts=z(K, N, 2), kf_rays=z(K, N, 3),
         kf_desc=z(K, N, D), kf_kpt_valid=z(K, N, dtype=torch.bool),
         kf_landmark_idx=full((K, N), -1, i32), kf_active=z(K, dtype=torch.bool),
         kf_map_id=z(K, dtype=i32), kf_parent=full((K,), -1, i32),
@@ -116,14 +124,23 @@ def _set_row(arr: torch.Tensor, k: torch.Tensor, ok: torch.Tensor, val) -> torch
 
 
 def add_keyframe(state: MapState, R_cw, t_cw, kpts, rays, desc, kpt_valid,
-                 landmark_idx, time, parent=None):
+                 landmark_idx, time, R_wb=None, p_wb=None, v_wb=None, bg=None, ba=None,
+                 parent=None):
     """Insert a keyframe at the next free slot; the write is dropped when the
-    table is full. Returns (new_state, kf_id)."""
+    table is full. The body state (R_wb ... ba) is written where given.
+    Returns (new_state, kf_id)."""
     k = state.n_kf
     ok = k < state.K
     kc = torch.clamp(k, max=state.K - 1)
     par = -1 if parent is None else parent
+
+    def body(name, val):
+        arr = getattr(state, name)
+        return arr if val is None else _set_row(arr, kc, ok, val)
+
     new = state.replace(
+        kf_R_wb=body("kf_R_wb", R_wb), kf_p_wb=body("kf_p_wb", p_wb),
+        kf_v_wb=body("kf_v_wb", v_wb), kf_bg=body("kf_bg", bg), kf_ba=body("kf_ba", ba),
         kf_R_cw=_set_row(state.kf_R_cw, kc, ok, R_cw),
         kf_t_cw=_set_row(state.kf_t_cw, kc, ok, t_cw),
         kf_kpts=_set_row(state.kf_kpts, kc, ok, kpts),
@@ -285,7 +302,9 @@ def compact_map(state: MapState):
     fkf_new = torch.where(lm_live, torch.clamp(fkf_new, min=0), -1)
 
     new = state.replace(
-        kf_R_cw=gk(state.kf_R_cw), kf_t_cw=gk(state.kf_t_cw), kf_time=gk(state.kf_time),
+        kf_R_cw=gk(state.kf_R_cw), kf_t_cw=gk(state.kf_t_cw),
+        kf_R_wb=gk(state.kf_R_wb), kf_p_wb=gk(state.kf_p_wb), kf_v_wb=gk(state.kf_v_wb),
+        kf_bg=gk(state.kf_bg), kf_ba=gk(state.kf_ba), kf_time=gk(state.kf_time),
         kf_kpts=gk(state.kf_kpts), kf_rays=gk(state.kf_rays), kf_desc=gk(state.kf_desc),
         kf_kpt_valid=gk(state.kf_kpt_valid, False),
         kf_landmark_idx=li_new.to(torch.int32),

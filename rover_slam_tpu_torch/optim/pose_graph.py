@@ -7,8 +7,8 @@ R^7; Gauss-Newton takes the edge Jacobians by forward-mode autodiff
 (`torch.func.jvp`, the JAX package's `jax.jacfwd`) at the zero left
 perturbation. The dense [7K, 7K] system is assembled by sorted segment sums
 (`ops/scatterless.py`: no float atomics, a run repeats to the bit) and solved
-by block-Jacobi PCG whose scalars stay on the device. The 4-DoF inertial
-variant comes with the inertial slice.
+by block-Jacobi PCG whose scalars stay on the device. The 4-DoF variant
+(yaw + translation, for inertial maps) shares that system.
 """
 from __future__ import annotations
 
@@ -83,85 +83,137 @@ def _edge_residual(xi_i, xi_j, s_i, R_i, t_i, s_j, R_j, t_j, s_m, R_m, t_m):
     return lie.sim3_log(se, Re, te)
 
 
-def _edge_jacobians(xi_i, xi_j, *meas):
-    """Jacobians [E,7,7] of every edge's residual in its two endpoints'
-    perturbations: edge e depends on row e alone, so one forward-mode pass
-    per tangent direction, applied to all edges at once, gives column k of
-    every edge's Jacobian."""
-    basis = torch.eye(7, device=xi_i.device)[:, None, :].expand(7, xi_i.shape[0], 7)
+def _edge_jacobians(res, xi_i, xi_j, *meas):
+    """Jacobians [E,d,d] of every edge's residual res(xi_i, xi_j, *meas) in
+    its two endpoints' perturbations: edge e depends on row e alone, so one
+    forward-mode pass per tangent direction, applied to all edges at once,
+    gives column k of every edge's Jacobian."""
+    d = xi_i.shape[1]
+    basis = torch.eye(d, device=xi_i.device)[:, None, :].expand(d, xi_i.shape[0], d)
 
     def cols(which):
         def one(v):
-            return jvp(lambda a, b: _edge_residual(a, b, *meas), (xi_i, xi_j),
+            return jvp(lambda a, b: res(a, b, *meas), (xi_i, xi_j),
                        (v, torch.zeros_like(v)) if which == 0 else (torch.zeros_like(v), v))[1]
-        return vmap(one)(basis).permute(1, 2, 0)          # [7,E,7] -> [E,7,7]
+        return vmap(one)(basis).permute(1, 2, 0)          # [d,E,d] -> [E,d,d]
 
     return cols(0), cols(1)
 
 
-def optimize_essential_graph(prob: PoseGraphProblem, iters: int = 20, fix_scale: bool = False):
-    """Gauss-Newton over Sim3 poses (damping 1e-6). Returns (s, R, t,
-    cost_history [iters]). fix_scale locks every vertex's scale (the
-    stereo/RGBD graphs)."""
-    K = prob.s.shape[0]
-    dev = prob.s.device
-    lam = 1e-6
-    # PCG moves information about one graph hop per iteration.
-    pcg_iters = max(48, K // 2)
-    pmask = prob.opt_mask.float()
-    fixed = pmask == 0
-    ei, ej = prob.e_i.long(), prob.e_j.long()
-    E = ei.shape[0]
-    # The four block families of H and the two of g, summed per block in a
-    # fixed order: one sort each for the whole solve.
-    plan_H = segment_plan(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
-                          K * K)
-    plan_g = segment_plan(torch.cat([ei, ej]), K)
-    w = prob.e_valid.float() * prob.e_weight
-    ar = torch.arange(K, device=dev)
-    eye7 = torch.eye(7, device=dev)
-    diag_add = torch.where(fixed[:, None, None], eye7, lam * eye7)
-    if fix_scale:
-        diag_add = diag_add.clone()
-        diag_add[:, 6, 6] += 1e12
-    keep_fixed = fixed[:, None, None, None] | fixed[None, None, :, None]
-    zero = torch.zeros((E, 7), device=dev)
-    s, R, t = prob.s, prob.R, prob.t
-    costs = []
-    for _ in range(iters):
-        args = (s[ei], R[ei], t[ei], s[ej], R[ej], t[ej], prob.e_s, prob.e_R, prob.e_t)
-        r = _edge_residual(zero, zero, *args)
-        Ji, Jj = _edge_jacobians(zero, zero, *args)
-        costs.append(torch.sum(w * torch.sum(r * r, dim=-1)))
+class _GraphSystem:
+    """The Gauss-Newton system of a pose graph over K vertices of d dof:
+    H [K,d,K,d] and g [K,d] summed from the edges' Jacobian blocks by sorted
+    segment sums (one sort for the whole solve), fixed vertices held by
+    identity blocks, damping lam on the free ones, solved by block-Jacobi
+    PCG."""
+
+    def __init__(self, prob: PoseGraphProblem, d: int, lam: float):
+        K = prob.R.shape[0]
+        dev = prob.R.device
+        self.K, self.d = K, d
+        self.ei, self.ej = prob.e_i.long(), prob.e_j.long()
+        ei, ej = self.ei, self.ej
+        self.plan_H = segment_plan(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej,
+                                              ej * K + ei]), K * K)
+        self.plan_g = segment_plan(torch.cat([ei, ej]), K)
+        self.w = prob.e_valid.float() * prob.e_weight
+        self.pmask = prob.opt_mask.float()
+        fixed = self.pmask == 0
+        eye = torch.eye(d, device=dev)
+        self.diag_add = torch.where(fixed[:, None, None], eye, lam * eye)
+        self.keep_fixed = fixed[:, None, None, None] | fixed[None, None, :, None]
+        self.ar = torch.arange(K, device=dev)
+        # PCG moves information about one graph hop per iteration.
+        self.pcg_iters = max(48, K // 2)
+
+    def step(self, r, Ji, Jj):
+        """(cost at the linearization point, dx [K,d] of the GN step)."""
+        K, d, w, pmask = self.K, self.d, self.w, self.pmask
+        E = r.shape[0]
+        cost = torch.sum(w * torch.sum(r * r, dim=-1))
         Jiw = Ji * w[:, None, None]
         Jjw = Jj * w[:, None, None]
         Hij = torch.einsum("eki,ekj->eij", Jiw, Jj)
         blocks = torch.cat([torch.einsum("eki,ekj->eij", Jiw, Ji),
                             torch.einsum("eki,ekj->eij", Jjw, Jj),
                             Hij, Hij.transpose(-1, -2)])
-        H = seg_sum(plan_H, blocks.reshape(4 * E, 49)).reshape(K, K, 7, 7)
-        H = H.permute(0, 2, 1, 3).contiguous()                   # [K,7,K,7]
-        g = seg_sum(plan_g, torch.cat([torch.einsum("eki,ek->ei", Jiw, r),
-                                       torch.einsum("eki,ek->ei", Jjw, r)]))
-        H = torch.where(keep_fixed, 0.0, H)
-        H[ar, :, ar, :] += diag_add
+        H = seg_sum(self.plan_H, blocks.reshape(4 * E, d * d)).reshape(K, K, d, d)
+        H = H.permute(0, 2, 1, 3).contiguous()                   # [K,d,K,d]
+        g = seg_sum(self.plan_g, torch.cat([torch.einsum("eki,ek->ei", Jiw, r),
+                                            torch.einsum("eki,ek->ei", Jjw, r)]))
+        H = torch.where(self.keep_fixed, 0.0, H)
+        H[self.ar, :, self.ar, :] += self.diag_add
         g = g * pmask[:, None]
-        dx = -_block_pcg(H, g, pmask, pcg_iters) * pmask[:, None]
+        return cost, -_block_pcg(H, g, pmask, self.pcg_iters) * pmask[:, None]
+
+
+def optimize_essential_graph(prob: PoseGraphProblem, iters: int = 20, fix_scale: bool = False):
+    """Gauss-Newton over Sim3 poses (damping 1e-6). Returns (s, R, t,
+    cost_history [iters]). fix_scale locks every vertex's scale (the
+    stereo/RGBD graphs)."""
+    gs = _GraphSystem(prob, 7, 1e-6)
+    if fix_scale:
+        gs.diag_add = gs.diag_add.clone()
+        gs.diag_add[:, 6, 6] += 1e12
+    ei, ej = gs.ei, gs.ej
+    zero = torch.zeros((ei.shape[0], 7), device=prob.s.device)
+    opt = gs.pmask > 0
+    s, R, t = prob.s, prob.R, prob.t
+    costs = []
+    for _ in range(iters):
+        args = (s[ei], R[ei], t[ei], s[ej], R[ej], t[ej], prob.e_s, prob.e_R, prob.e_t)
+        r = _edge_residual(zero, zero, *args)
+        cost, dx = gs.step(r, *_edge_jacobians(_edge_residual, zero, zero, *args))
+        costs.append(cost)
         if fix_scale:
             dx = torch.cat([dx[:, :6], torch.zeros_like(dx[:, 6:])], dim=1)
         s_new, R_new, t_new = lie.sim3_compose(*lie.sim3_exp(dx), s, R, t)
         R_new = lie.normalize_rotation(R_new)
-        opt = pmask > 0
         s = torch.where(opt, s_new, s)
         R = torch.where(opt[:, None, None], R_new, R)
         t = torch.where(opt[:, None], t_new, t)
     return s, R, t, torch.stack(costs)
 
 
+def _yaw(x):
+    """Rotations about the world z axis by x[..., 3]."""
+    return lie.so3_exp(torch.nn.functional.pad(x[..., 3:4], (2, 0)))
+
+
+def _residual_4dof(x_i, x_j, R_i, t_i, R_j, t_j, R_m, t_m):
+    """6-dim SE3 residual log(T_m T_j T_i^-1) with the 4-dof updates
+    [dt(3), dyaw] applied to both endpoints (reference Edge4DoF +
+    VertexPose4DoF: roll and pitch are gravity-locked after IMU alignment)."""
+    Rzi, Rzj = _yaw(x_i), _yaw(x_j)
+    Ri_ = Rzi @ R_i
+    ti_ = torch.einsum("...ij,...j->...i", Rzi, t_i) + x_i[..., :3]
+    Rj_ = Rzj @ R_j
+    tj_ = torch.einsum("...ij,...j->...i", Rzj, t_j) + x_j[..., :3]
+    Rr, tr = lie.se3_compose(Rj_, tj_, *lie.se3_inverse(Ri_, ti_))
+    return lie.se3_log(*lie.se3_compose(R_m, t_m, Rr, tr))
+
+
 def optimize_pose_graph_4dof(prob: PoseGraphProblem, iters: int = 20):
-    raise NotImplementedError(
-        "The 4-DoF inertial pose graph is not ported yet: it comes with the "
-        "inertial (A15) slice of the PyTorch port (see ROADMAP.md)")
+    """4-DoF (yaw + translation) pose graph for inertial maps (reference
+    OptimizeEssentialGraph4DoF), damping 1e-6. Uses the edge measurements'
+    (R, t); scales are ignored. Returns (R, t, cost_history [iters])."""
+    gs = _GraphSystem(prob, 4, 1e-6)
+    ei, ej = gs.ei, gs.ej
+    zero = torch.zeros((ei.shape[0], 4), device=prob.R.device)
+    opt = gs.pmask > 0
+    R, t = prob.R, prob.t
+    costs = []
+    for _ in range(iters):
+        args = (R[ei], t[ei], R[ej], t[ej], prob.e_R, prob.e_t)
+        r = _residual_4dof(zero, zero, *args)
+        cost, dx = gs.step(r, *_edge_jacobians(_residual_4dof, zero, zero, *args))
+        costs.append(cost)
+        Rz = _yaw(dx)
+        R_new = lie.normalize_rotation(torch.einsum("kij,kjl->kil", Rz, R))
+        t_new = torch.einsum("kij,kj->ki", Rz, t) + dx[:, :3]
+        R = torch.where(opt[:, None, None], R_new, R)
+        t = torch.where(opt[:, None], t_new, t)
+    return R, t, torch.stack(costs)
 
 
 def sim3_to_se3(s, R, t):

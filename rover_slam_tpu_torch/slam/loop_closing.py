@@ -11,9 +11,9 @@ either branches on a value the host already holds (the candidate ids) or
 computes both sides and selects with `torch.where` (a seed's success), so a
 branch costs no host sync. The RANSAC draws come from a torch.Generator
 seeded like the JAX package's PRNGKey; the parity tests hand in the JAX
-package's own draws (`samples`). The stereo (`bf`), inertial (4-DoF pose
-graph) and multi-device (`mesh`) variants raise NotImplementedError naming
-their slice.
+package's own draws (`samples`). With `use_4dof` (set by the inertial
+system) loop corrections run the 4-DoF pose graph. The stereo (`bf`) and
+multi-device (`mesh`) variants raise NotImplementedError naming their slice.
 """
 from __future__ import annotations
 
@@ -307,11 +307,13 @@ def _optimize_graph(state: ms.MapState, prob: pose_graph.PoseGraphProblem, iters
     SE3 poses back. Returns (kf_R, kf_t, lm_pos, costs), poses of every
     active keyframe replaced."""
     K = state.K
-    if mode == "4dof":
-        pose_graph.optimize_pose_graph_4dof(prob, iters=iters)
-    s_new, R_new, t_new, costs = pose_graph.optimize_essential_graph(
-        prob, iters=iters, fix_scale=(mode == "se3"))
     ones = torch.ones(K, device=state.device)
+    if mode == "4dof":
+        R_new, t_new, costs = pose_graph.optimize_pose_graph_4dof(prob, iters=iters)
+        s_new = ones
+    else:
+        s_new, R_new, t_new, costs = pose_graph.optimize_essential_graph(
+            prob, iters=iters, fix_scale=(mode == "se3"))
     anchor = state.lm_anchor_kf.clamp(0, K - 1)
     lm_new = pose_graph.correct_landmarks(state.lm_pos, anchor, ones, state.kf_R_cw,
                                           state.kf_t_cw, s_new, R_new, t_new, state.lm_active)
@@ -332,7 +334,7 @@ def _correct_loop_kernel(state: ms.MapState, kf_q: int, kf_c: int, s_qc, R_qc, t
                          min_covis_weight: int, iters: int, mode: str = "sim3"):
     """Essential-graph correction after an accepted loop. S_qc maps the
     candidate camera into the query camera. mode "sim3" (mono), "se3"
-    (scales locked) or "4dof" (inertial, not ported). Returns (state,
+    (scales locked) or "4dof" (inertial: yaw and translation). Returns (state,
     cost_history)."""
     K = state.K
     dev = state.device
@@ -526,8 +528,11 @@ class LoopCloser:
         # (s, R, t) the Sim3 candidate camera -> q_last camera.
         self._hyp = None
         self._ban_until_kf = -1
+        # Set by the inertial system once gravity is aligned: loop
+        # corrections then keep roll, pitch and scale (the 4-DoF graph).
+        self.use_4dof = False
 
-    # The stereo and inertial variants of the JAX package set these.
+    # The stereo variants of the JAX package set this.
     @property
     def bf(self):
         return None
@@ -538,16 +543,12 @@ class LoopCloser:
             raise _later("Stereo loop closing (bf)", "stereo (A16)")
 
     @property
-    def use_4dof(self) -> bool:
-        return False
-
-    @use_4dof.setter
-    def use_4dof(self, value):
-        if value:
-            raise _later("The 4-DoF inertial pose graph", "inertial (A15)")
-
-    @property
     def pose_graph_mode(self) -> str:
+        """Pose-graph flavour of loop correction: "4dof" once an inertial
+        system has aligned gravity (use_4dof), else "se3" with fix_scale,
+        else "sim3"."""
+        if self.use_4dof:
+            return "4dof"
         return "se3" if self.cfg.fix_scale else "sim3"
 
     def _sim3_kwargs(self):

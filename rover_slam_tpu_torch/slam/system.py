@@ -6,9 +6,13 @@ RECENTLY_LOST with relocalization, LOST with a new Atlas map) and the
 keyframe decision; a keyframe insert runs triangulation, fusion and the
 windowed local BA on the device. With pipeline=K the keyframe decision and
 insert run inside the frame's device program (`_track_and_map_body`) and the
-host reads each frame's flags K frames later. Keyframe slots carry host-side
-uids so that culling and compaction, which recycle slots, keep the trajectory
-whole. With enable_loop_closing every keyframe goes through the loop closer
+host reads each frame's flags K frames later; a subclass that keeps its
+inserts on the host (`_fused_mapping_ok`, the inertial system) defers the
+whole finish, its keyframe decision and insert included. The hooks
+`_prepare_frame`, `_on_frame_finish`, `_post_track_refine`, `_on_map_merged`
+and `_on_compaction` are where the JAX package calls them. Keyframe slots
+carry host-side uids so that culling and compaction, which recycle slots,
+keep the trajectory whole. With enable_loop_closing every keyframe goes through the loop closer
 (`slam/loop_closing.py`) and every finished frame polls it. The multi-device
 BA raises NotImplementedError naming its slice.
 """
@@ -127,6 +131,9 @@ class MonocularSLAM:
                             torch.as_tensor(rays, device=dev).float(),
                             torch.as_tensor(desc, device=dev).float(),
                             torch.as_tensor(valid, device=dev).bool(), float(time))
+        # Subclass hook: per-frame context that the (possibly deferred)
+        # finish needs, stashed at dispatch.
+        self._prepare_frame(frame)
         # Timestamp gap or step back: finish the old timeline, then continue
         # in a fresh Atlas map (reference CreateMapInAtlas on a dt jump).
         if (self.cfg.timestamp_jump_s > 0 and self.last_frame is not None
@@ -152,7 +159,11 @@ class MonocularSLAM:
             self._compact_requested = False
             self._relieve_capacity()
 
-        fused = self.pipeline and self.n_kf >= self.pipeline_warmup_kfs
+        # Past warm-up a pipelined frame finishes K frames later; its keyframe
+        # decision and insert run inside its device program only where the
+        # system allows it (_fused_mapping_ok), else on the host at finish.
+        deferred = self.pipeline and self.n_kf >= self.pipeline_warmup_kfs
+        fused = deferred and self._fused_mapping_ok()
         with self.timers.stage("lm_track"):
             R0, t0 = self._predict_pose()
             prev = self.last_frame
@@ -192,7 +203,7 @@ class MonocularSLAM:
             frame.R_cw, frame.t_cw, frame.landmark_idx = R2, t2, cur_lm
         flags = HostCopy(flags)
 
-        if fused:
+        if deferred:
             # The flags ride to the host behind the queued work and are read
             # K frames later; the motion model takes the device values now.
             self._pending.append((frame, flags))
@@ -216,6 +227,7 @@ class MonocularSLAM:
         # A compaction fired from the keyframe decision must remap this
         # frame's landmark ids too: it is in neither _pending nor last_frame.
         self._finishing_frame = frame
+        self._on_frame_finish(frame)
         with self.timers.stage("flags_fetch"):
             flags = flags.numpy()
         ok = bool(flags[0])
@@ -249,6 +261,7 @@ class MonocularSLAM:
         else:
             self._lost_frames = 0
             self.tracking_state = T.OK
+            self._post_track_refine(frame)
             if not self.pipeline:
                 self._update_motion_model(frame)
 
@@ -439,6 +452,29 @@ class MonocularSLAM:
         dR, dt = self.velocity
         return T._compose_pose(dR, dt, R1, t1)
 
+    def _prepare_frame(self, frame):
+        """Hook: attach per-frame context at dispatch, before the frame may
+        enter the pipeline queue."""
+
+    def _on_frame_finish(self, frame):
+        """Hook: once per frame at finish, before the state machine."""
+
+    def _post_track_refine(self, frame):
+        """Hook: refine a tracked frame's pose before the motion model and
+        the keyframe decision."""
+
+    def _fused_mapping_ok(self) -> bool:
+        """Whether pipeline mode may run the keyframe decision and insert
+        inside the frame's device program."""
+        return True
+
+    def _on_map_merged(self, kf_id: int, info: dict):
+        """Hook: a cross-map weld just happened (after the welding BA)."""
+
+    def _on_compaction(self, kf_old2new: np.ndarray):
+        """Hook: slot compaction renumbered the keyframes (kf_old2new [K],
+        -1 for a dropped slot)."""
+
     def _update_motion_model(self, frame):
         self.velocity = T._relative_pose(self.last_frame.R_cw, self.last_frame.t_cw,
                                          frame.R_cw, frame.t_cw)
@@ -478,7 +514,7 @@ class MonocularSLAM:
         state_c = ms.MapState(**{k: getattr(self.state, k).clone() for k in ms.FIELDS})
         prev_lidx = prev.landmark_idx if prev.landmark_idx is not None \
             else torch.full((self.state.N,), -1, dtype=torch.int32, device=self.device)
-        if self.pipeline:
+        if self.pipeline and self._fused_mapping_ok():
             policy = torch.tensor([0.0, float(self.ref_kf_tracked), 0.0], device=self.device)
             ext = None
             if self.matcher is not None:
@@ -605,6 +641,8 @@ class MonocularSLAM:
             # Landmarks moved and were fused: rebuild the search mask.
             self._local_mask = None
             self.loop_events.append((kf_id, linfo))
+        if linfo and linfo.get("merge"):
+            self._on_map_merged(kf_id, linfo)
 
     def _poll_loop_closer(self):
         """Per-frame progress of the loop closer; never waits on the card."""
@@ -767,3 +805,4 @@ class MonocularSLAM:
                     lc._hyp = None
                 else:
                     hyp["cand"], hyp["q_last"] = c, q
+        self._on_compaction(kf_map)

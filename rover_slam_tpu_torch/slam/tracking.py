@@ -69,6 +69,8 @@ class TrackerConfig:
     min_reloc_inliers: int = 30
     reloc_every: int = 2
     timestamp_jump_s: float = 1.0
+    insert_kfs_when_lost: bool = False   # with an IMU: keep inserting keyframes
+                                         # from predicted poses while RECENTLY_LOST
     init_sigma_px: float = 1.0
     th_far_points: float = 100.0
     motion_rounds: int = 2
@@ -89,6 +91,10 @@ class FrameData:
     t_cw: Optional[torch.Tensor] = None
     landmark_idx: Optional[torch.Tensor] = None
     fused: bool = False     # tracked (and maybe inserted) by _track_and_map_body
+    # Inertial systems, stashed at dispatch for the finish-time refinement:
+    # the frame's preintegration segment and its IMU-predicted velocity.
+    vi_seg: Optional[object] = None
+    vi_pred_v: Optional[torch.Tensor] = None
 
 
 def _match_prev(desc0, valid0, desc1, valid1):

@@ -117,6 +117,94 @@ def orbit_trajectory(n_frames=80, orbit_radius=5.0, seed=1, noise=0.001,
     return np.stack(Rs), np.stack(ts), np.asarray(times, np.float32)
 
 
+def _imu_samples(body_state, n_frames, dt, hz, g_w, bg, ba, noise_g, noise_a, seed,
+                 sample_time):
+    """Ground truth at the frames and IMU samples between them from an
+    analytic body_state(t) -> (R_wb, p, v, a, w_b): specific force
+    R^T (a - g) + ba and rate w_b + bg, each with white noise, drawn in
+    sample order from one generator. Camera == body."""
+    rng = np.random.default_rng(seed)
+    g = np.asarray(g_w, np.float32)
+    bg = np.asarray(bg, np.float32)
+    ba = np.asarray(ba, np.float32)
+    Rs, ts, vs, times, imu = [], [], [], [], []
+    n_per = int(round(dt * hz))
+    for i in range(n_frames):
+        t_f = i * dt
+        R_wb, p, v, _, _ = body_state(t_f)
+        R_cw = R_wb.T
+        Rs.append(R_cw); ts.append(-R_cw @ p); vs.append(v); times.append(t_f)
+        if i + 1 < n_frames:
+            accs, gyros, tt = [], [], []
+            for j in range(n_per):
+                t_s = sample_time(t_f, j, n_per)
+                Rj, _, _, aj, wj = body_state(t_s)
+                f_b = Rj.T @ (aj - g) + ba + rng.normal(0, noise_a * np.sqrt(hz), 3)
+                w_m = wj + bg + rng.normal(0, noise_g * np.sqrt(hz), 3)
+                accs.append(f_b.astype(np.float32))
+                gyros.append(w_m.astype(np.float32))
+                tt.append(t_s)
+            imu.append((np.stack(accs), np.stack(gyros), np.asarray(tt)))
+    return (np.stack(Rs), np.stack(ts), np.asarray(times, np.float32), np.stack(vs), imu)
+
+
+def orbit_with_imu(n_frames=100, orbit_radius=5.0, revs=1.25, dt=0.1, hz=200,
+                   bg=(0.002, -0.001, 0.003), ba=(-0.02, 0.03, 0.01),
+                   noise_g=1.7e-4, noise_a=2e-3, seed=2, g_w=(0.0, -9.81, 0.0)):
+    """Analytic circular orbit with IMU samples (gravity perpendicular to the
+    orbit plane, -y world), camera == body. A radial wobble and a vertical
+    bob give the jerk that makes monocular scale observable.
+
+    Returns (R_cw [F,3,3], t_cw [F,3], times [F], v_wb [F,3],
+             imu_per_frame: list of (acc [n,3], gyro [n,3], t [n]))."""
+    omega = 2 * np.pi * revs / (n_frames * dt)
+    r = orbit_radius
+    w_r, A_r = 2.7, 0.25
+    w_y, A_y = 3.3, 0.20
+    w_b = np.array([0.0, omega, 0.0], np.float32)
+
+    def body_state(t):
+        th = omega * t
+        rr = r + A_r * np.sin(w_r * t)
+        dr = A_r * w_r * np.cos(w_r * t)
+        ddr = -A_r * w_r * w_r * np.sin(w_r * t)
+        s_, c_ = np.sin(th), np.cos(th)
+        e_rad = np.array([s_, 0.0, c_])
+        e_tan = np.array([c_, 0.0, -s_])
+        y = A_y * np.sin(w_y * t)
+        dy = A_y * w_y * np.cos(w_y * t)
+        ddy = -A_y * w_y * w_y * np.sin(w_y * t)
+        p = (rr * e_rad + np.array([0.0, y, 0.0])).astype(np.float32)
+        v = (dr * e_rad + rr * omega * e_tan + np.array([0.0, dy, 0.0])).astype(np.float32)
+        a = ((ddr - rr * omega * omega) * e_rad + 2 * dr * omega * e_tan
+             + np.array([0.0, ddy, 0.0])).astype(np.float32)
+        return _so3_exp([0.0, th, 0.0]), p, v, a, w_b
+
+    return _imu_samples(body_state, n_frames, dt, hz, g_w, bg, ba, noise_g, noise_a, seed,
+                        lambda t_f, j, n_per: t_f + (j + 1) / hz * (dt * hz / n_per))
+
+
+def wavy_forward_with_imu(n_frames=40, dt=0.1, hz=200, v_fwd=0.9, A_x=0.45, w_x=2.2,
+                          A_y=0.30, w_y=3.1, yaw_amp=0.06, yaw_w=1.7,
+                          bg=(0.002, -0.001, 0.003), ba=(-0.02, 0.03, 0.01),
+                          noise_g=1.7e-4, noise_a=2e-3, seed=2, g_w=(0.0, -9.81, 0.0)):
+    """Analytic forward trajectory with lateral and vertical sway and a
+    gentle yaw, plus IMU samples (camera == body). Returns (R_cw, t_cw,
+    times, v_wb, imu) as orbit_with_imu."""
+    def body_state(t):
+        p = np.array([A_x * np.sin(w_x * t), A_y * np.sin(w_y * t), v_fwd * t], np.float32)
+        v = np.array([A_x * w_x * np.cos(w_x * t), A_y * w_y * np.cos(w_y * t), v_fwd],
+                     np.float32)
+        a = np.array([-A_x * w_x ** 2 * np.sin(w_x * t), -A_y * w_y ** 2 * np.sin(w_y * t),
+                      0.0], np.float32)
+        yaw = yaw_amp * np.sin(yaw_w * t)
+        w_b = np.array([0.0, yaw_amp * yaw_w * np.cos(yaw_w * t), 0.0], np.float32)
+        return _so3_exp([0.0, yaw, 0.0]), p, v, a, w_b
+
+    return _imu_samples(body_state, n_frames, dt, hz, g_w, bg, ba, noise_g, noise_a, seed,
+                        lambda t_f, j, n_per: t_f + (j + 1) / hz)
+
+
 def render_frame(world: SyntheticWorld, R_cw, t_cw, time, n_kpts=512,
                  pix_noise=0.4, desc_noise=0.08, dropout=0.05, seed=0
                  ) -> SyntheticFrame:

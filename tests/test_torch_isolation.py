@@ -2,8 +2,8 @@
 chip_smoke.py, profile_port.py or tests/test_torch_cuda.py) imports JAX,
 Flax, Optax or the JAX package, its shipped codebooks are plain arrays, its
 entry points default to the card, and what it has not ported raises naming
-its slice (the multi-device BA, and on the loop path the stereo and the
-inertial variants)."""
+its slice (the multi-device BA, and the stereo variants of the loop path and
+of the inertial system)."""
 import ast
 import pathlib
 
@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from rover_slam_tpu_torch.imu import preintegration
 from rover_slam_tpu_torch.map import keyframe_database, maintenance
-from rover_slam_tpu_torch.optim import pose_graph
+from rover_slam_tpu_torch.slam.inertial_system import MonocularInertialSLAM
 from rover_slam_tpu_torch.slam.loop_closing import LoopCloser, LoopConfig
 from rover_slam_tpu_torch.slam.system import MonocularSLAM
 from rover_slam_tpu_torch.slam.tracking import TrackerConfig
@@ -86,8 +87,7 @@ def test_unported_options_raise(kw):
 
 
 def test_loop_path_variants_raise():
-    """mesh= (multi-device, A17), the 4-DoF pose graph (inertial, A15) and
-    stereo bf (A16) on the loop path."""
+    """mesh= (multi-device, A17) and stereo bf (A16) on the loop path."""
     with pytest.raises(NotImplementedError, match="A17"):
         LoopCloser(CAM, 8, 64, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A17"):
@@ -96,10 +96,6 @@ def test_loop_path_variants_raise():
     assert lc.bf is None and lc.pose_graph_mode == "sim3"
     with pytest.raises(NotImplementedError, match="A16"):
         lc.bf = 400.0
-    with pytest.raises(NotImplementedError, match="A15"):
-        lc.use_4dof = True
-    with pytest.raises(NotImplementedError, match="A15"):
-        pose_graph.optimize_pose_graph_4dof(None)
     slam = MonocularSLAM(CAM, device="cpu", map_capacity=(8, 16, 64))
     with pytest.raises(NotImplementedError, match="A17"):
         maintenance.global_ba(slam.state, slam.cam_params, mesh=object())
@@ -119,3 +115,34 @@ def test_lifecycle_options_are_ported(kw):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MonocularSLAM(CAM, device=None, **kw)
+
+
+CALIB = preintegration.ImuCalib(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                                0.0024, 0.028, 1.3e-6, 2.1e-4)
+
+
+def test_inertial_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("imu/preintegration.py", "optim/pose_inertial.py", "optim/inertial_init.py",
+              "optim/vi_ba.py", "slam/inertial_system.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
+
+
+def test_inertial_system_entry_point():
+    """MonocularInertialSLAM defaults to the card; its inserts stay on the
+    host; its loop closer starts in the Sim3 mode (4-DoF once the IMU is
+    aligned); stereo inputs raise naming A16."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MonocularInertialSLAM(CAM, CALIB, device=None)
+    slam = MonocularInertialSLAM(CAM, CALIB, device="cpu", enable_loop_closing=True,
+                                 pipeline=4)
+    assert slam.calib.Rbc.device.type == "cpu" and not slam._fused_mapping_ok()
+    assert slam.cfg.time_recently_lost_s == 5.0 and not slam.cfg.insert_kfs_when_lost
+    lc = slam.loop_closer
+    assert lc.pose_graph_mode == "sim3"
+    lc.use_4dof = True
+    assert lc.pose_graph_mode == "4dof"
+    assert slam.bf is None
+    with pytest.raises(NotImplementedError, match="A16"):
+        slam.bf = 400.0

@@ -1,8 +1,8 @@
 """The loop closer's correction programs of the port against the JAX
 package, on the ring-orbit map of tests/test_torch_loop_kernels.py at its
 revisit: the essential-graph edge set, the loop correction (pose graph,
-landmark transfer, SE3 recovery, the new loop edge) in the sim3 and se3
-mode, and the fusion of duplicated landmarks after it. The Sim3 is the
+landmark transfer, SE3 recovery, the new loop edge) in the sim3, se3 and
+4dof modes, and the fusion of duplicated landmarks after it. The Sim3 is the
 port's fire-time solve of the revisit pair; both sides get the same one.
 Tolerances: edges exact, poses atol 1e-4 (POSE), points atol 1e-3 (POINT),
 the cost history (a sum over some 800 edges) rtol 1e-3, fused tables
@@ -73,6 +73,19 @@ def test_correct_loop_then_fuse(loop):
 
 
 def test_four_dof_mode_raises(loop):
-    st, _, q, c, sim3 = loop
-    with pytest.raises(NotImplementedError, match="A15"):
-        tlc._correct_loop_kernel(st, q, c, *sim3, 20, 2, mode="4dof")
+    """mode="4dof", the inertial maps' correction (yaw + translation; until
+    the inertial slice it raised NotImplementedError, hence the name): the
+    same poses, points, loop edge and cost history as the JAX package's."""
+    st, st_j, q, c, sim3 = loop
+    sj = tuple(jnp.asarray(x.numpy()) for x in sim3)
+    out_j, costs_j = jlc._correct_loop_kernel(st_j, jnp.asarray(q, jnp.int32),
+                                              jnp.asarray(c, jnp.int32), *sj,
+                                              jnp.asarray(20, jnp.int32), 2, mode="4dof")
+    out_t, costs_t = tlc._correct_loop_kernel(st, q, c, *sim3, 20, 2, mode="4dof")
+    act = np.asarray(st_j.kf_active)
+    np.testing.assert_allclose(out_t.kf_R_cw.numpy()[act], np.asarray(out_j.kf_R_cw)[act], **POSE)
+    np.testing.assert_allclose(out_t.kf_t_cw.numpy()[act], np.asarray(out_j.kf_t_cw)[act], **POSE)
+    lm = np.asarray(st_j.lm_active)
+    np.testing.assert_allclose(out_t.lm_pos.numpy()[lm], np.asarray(out_j.lm_pos)[lm], **POINT)
+    np.testing.assert_array_equal(out_t.kf_loop_edges.numpy(), np.asarray(out_j.kf_loop_edges))
+    np.testing.assert_allclose(costs_t.numpy(), np.asarray(costs_j), rtol=1e-3)

@@ -63,6 +63,24 @@ def test_optimize_essential_graph(fix_scale):
     assert float(out_t[3][-1]) < float(out_t[3][0])
 
 
+def test_optimize_pose_graph_4dof():
+    """The inertial maps' 4-DoF graph (yaw + translation; the scales and the
+    measurements' scales ignored) on the same random graph: poses POSE, the
+    cost history rtol 1e-4."""
+    g = _graph(seed=3)
+    pj = jpg.PoseGraphProblem(**{k: jnp.asarray(v) for k, v in g.items()})
+    pt = tpg.PoseGraphProblem(**{k: torch.from_numpy(v) for k, v in g.items()})
+    out_j = jpg.optimize_pose_graph_4dof(pj, iters=5)
+    out_t = tpg.optimize_pose_graph_4dof(pt, iters=5)
+    _close(out_t[:2], out_j[:2], POSE)
+    np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]), rtol=1e-4, atol=1e-7)
+    assert float(out_t[2][-1]) < float(out_t[2][0])
+    # As in the JAX package the yaw left-multiplies R_cw, a turn about each
+    # camera's own z axis: row 2 of R_cw (that axis in world coordinates)
+    # stays (ROADMAP.md, section C).
+    np.testing.assert_allclose(out_t[0].numpy()[:, 2, :], g["R"][:, 2, :], atol=1e-5)
+
+
 def test_correct_landmarks_and_sim3_to_se3():
     g = _graph(K=12, seed=1)
     rng = np.random.default_rng(2)

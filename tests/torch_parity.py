@@ -30,6 +30,13 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def torch_problem(cls, prob_j):
+    """The port's NamedTuple `cls` with the fields of a JAX one (extra JAX
+    fields, such as the stereo ones left None, are dropped)."""
+    return cls(**{f: torch.from_numpy(np.array(getattr(prob_j, f)))
+                  for f in cls._fields if getattr(prob_j, f, None) is not None})
+
+
 def to_jax_state(st: tms.MapState):
     base = jms.empty_map(K=st.K, N=st.N, L=st.L, D=st.lm_desc.shape[1])
     return base.replace(**{k: jnp.asarray(getattr(st, k).numpy()) for k in tms.FIELDS})
@@ -270,3 +277,103 @@ def merge_scene():
     assert bool(ok) and int(n_proj) >= 40
     in_old = st.kf_active & (st.kf_map_id == 0)
     return st, q, c, (s, R, t), in_old
+
+
+IMU_CALIB = dict(Rbc=np.eye(3, dtype=np.float32), tbc=np.zeros(3, np.float32),
+                 sigma_g=np.float32(1.7e-4 * np.sqrt(200.0)),
+                 sigma_a=np.float32(2e-3 * np.sqrt(200.0)),
+                 walk_g=np.float32(1.9e-5 / np.sqrt(200.0)),
+                 walk_a=np.float32(3e-3 / np.sqrt(200.0)))   # tests/test_e2e_inertial.py
+
+
+def inertial_pair(n_frames, pipeline=0, tinit_s=1.5, n_scored=None):
+    """Both MonocularInertialSLAMs over tests/test_e2e_inertial.py's ring
+    world at its per-frame motion (orbit_with_imu at dt 0.1, 1.2 revolutions
+    per 120 frames), cut to n_frames; 64-D descriptors, 512 keypoints,
+    tables 64 / 512 / 4096. Each side's inertial-only solves are recorded.
+    Returns ({"jax": run, "torch": run}, ground truth); a run holds the
+    slam, the per-frame states, the frame at which imu_ready turned true,
+    the solves' (scale, Rwg, bg, ba), the camera centres of the first
+    n_scored frames (None: all) and the metric and scale-aligned ATE (Horn
+    without and with scale) over those of them after the init."""
+    import jax.numpy as jnp
+    from rover_slam_tpu.imu import preintegration as jpre
+    from rover_slam_tpu.optim import inertial_init as jii
+    from rover_slam_tpu.slam.inertial_system import MonocularInertialSLAM as JaxVI
+    from rover_slam_tpu.utils import trajectory
+    from rover_slam_tpu_torch.optim import inertial_init as tii
+    from rover_slam_tpu_torch.slam.inertial_system import MonocularInertialSLAM as TorchVI
+    from rover_slam_tpu_torch.utils import synthetic
+    world = synthetic.ring_world(n_landmarks=6000, desc_dim=64, seed=0)
+    R_gt, t_gt, times, _, imu = synthetic.orbit_with_imu(n_frames=n_frames,
+                                                         revs=1.2 * n_frames / 120, dt=0.1)
+    frames = synthetic.render_sequence(world, R_gt, t_gt, times, n_kpts=512, pix_noise=0.5,
+                                       desc_noise=0.05)
+    gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(n_frames)])
+    calib = jpre.ImuCalib(**{k: jnp.asarray(v) for k, v in IMU_CALIB.items()})
+    out = {}
+    for name, cls, mod, kw in (("jax", JaxVI, jii, {}),
+                               ("torch", TorchVI, tii, dict(device="cpu"))):
+        solves = []
+        orig = mod.inertial_only_optimization
+
+        def recording(*a, orig=orig, solves=solves, **k):
+            res = orig(*a, **k)
+            solves.append(tuple(_np(x) for x in (res.scale, res.Rwg, res.bg, res.ba)))
+            return res
+
+        mod.inertial_only_optimization = recording
+        try:
+            slam = cls(world.cam_params, calib, tinit_s=tinit_s, map_capacity=(64, 512, 4096),
+                       desc_dim=64, pipeline=pipeline, **kw)
+            states, ready = [], None
+            for i, f in enumerate(frames):
+                if i > 0:
+                    for a, g, t in zip(*imu[i - 1]):
+                        slam.feed_imu(a, g, t)
+                states.append(slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time)["state"])
+                if slam.imu_ready and ready is None:
+                    ready = i
+            slam.flush()
+        finally:
+            mod.inertial_only_optimization = orig
+        est_t, est_R, est_tcw = slam.get_trajectory()
+        pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])[:n_scored]
+        after = [(i, j) for i, j in trajectory.associate_by_time(est_t, times)
+                 if ready is not None and ready < j < len(pos)]
+        e = np.stack([pos[i] for i, _ in after])
+        g = np.stack([gt_pos[j] for _, j in after])
+        out[name] = dict(slam=slam, states=states, ready=ready, solves=solves, pos=pos,
+                         ate_metric=trajectory.ate_rmse(e, g, with_scale=False)[0],
+                         ate_scaled=trajectory.ate_rmse(e, g, with_scale=True)[0])
+    return out, gt_pos
+
+
+def check_inertial_pair(runs, pos_atol):
+    """What both inertial scenes hold: states equal frame by frame, the IMU
+    initialized at the same frame by the same solves (scale rtol 1e-2, Rwg
+    atol 1e-3, bg atol 5e-4, ba atol 5e-3: the keyframe poses entering the
+    init differ by the rounding of the frames before it, about 1e-4 of the
+    map, which a 1.5 s window amplifies to 0.5 % in scale; ba lies along a
+    weakly observed direction),
+    final biases alike (bg 5e-4, ba 1e-2), trajectories within pos_atol (m),
+    the metric ATE within 1 cm of each other and under 0.15 m (the e2e
+    test's bound), and the VI refinement and VI-BA ran after the init."""
+    j, t = runs["jax"], runs["torch"]
+    assert t["states"] == j["states"]
+    assert t["ready"] == j["ready"] is not None
+    assert len(t["solves"]) == len(j["solves"]) >= 1
+    for st, sj in zip(t["solves"], j["solves"]):
+        np.testing.assert_allclose(st[0], sj[0], rtol=1e-2)
+        np.testing.assert_allclose(st[1], sj[1], atol=1e-3)
+        np.testing.assert_allclose(st[2], sj[2], atol=5e-4)
+        np.testing.assert_allclose(st[3], sj[3], atol=5e-3)
+    ts, js = t["slam"], j["slam"]
+    np.testing.assert_allclose(_np(ts.bg), _np(js.bg), atol=5e-4)
+    np.testing.assert_allclose(_np(ts.ba), _np(js.ba), atol=1e-2)
+    assert t["pos"].shape == j["pos"].shape
+    np.testing.assert_allclose(t["pos"], j["pos"], atol=pos_atol)
+    assert abs(t["ate_metric"] - j["ate_metric"]) < 0.01
+    assert t["ate_metric"] < 0.15
+    assert ts.vi_refines > 0 and ts.vi_ba_runs >= 2
+    assert ts.timers.summary()["vi_pose"]["count"] == js.timers.summary()["vi_pose"]["count"]
