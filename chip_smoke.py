@@ -61,6 +61,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                and keep the metric ATE (Horn without scale, over the frames
                after the init) under G_ATE_BOUND_CM; the pipelined run, whose
                reference loses tracking after the init, >= 90 % up to it.
+               Each run logs the frames that fired a loop and the scale log.
+ 12. path H  — the EuRoC app (rover_slam_tpu_torch.apps.run_euroc) on the
+               card: path G's scene written as an EuRoC tree (H_FRAMES
+               frames, PGM images, imu0/data.csv, gt.txt), a reference-style
+               settings file (1024 features, path G's IMU noise, loop
+               closing, System.SaveAtlasToFile) and the shipped weights as
+               official-layout checkpoints; session 1 monocular-inertial
+               with --gt, --stats-out and --frame-log (image read, extract
+               and track times a frame); the atlas through the checksum
+               gate; the ATE CLI on session 1's TUM file; session 2 resumes
+               the atlas through System.LoadAtlasFromFile for a short
+               monocular run. Gates in phase_path_h.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -72,6 +84,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -106,6 +119,14 @@ BG_TRUE, BA_TRUE = (0.002, -0.001, 0.003), (-0.02, 0.03, 0.01)
 # Metric ATE bound of path G: 2.6x the larger CPU reading of
 # parity_fullwidth.py --inertial --frames 120 (JAX 3.82 cm, port 5.70 cm).
 G_ATE_BOUND_CM = 15.0
+# Path H: the EuRoC app on path G's scene written as an EuRoC tree.
+H_FRAMES = 120
+H_RESUME_FRAMES = 30
+# Metric ATE bound of path H (the app's own: Horn without scale over every
+# frame): about 2x the larger CPU reading of parity_fullwidth.py --app
+# --frames 120 (JAX 23.28 cm, port 20.97 cm; both IMU inits at frame 60).
+H_ATE_BOUND_CM = 50.0
+H_TRACKED_MIN = 0.9
 
 
 def masked_attention_f32p(q, k, v, mask_kv):
@@ -1013,12 +1034,16 @@ def run_path_g(scene, pipeline: int, count_syncs: bool):
             torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
+            fire_frames = []
             for i in range(n_frames):
                 t1 = time.perf_counter()
+                n_loops = len(slam.loop_events)
                 scene.step(slam, i)
                 frame_ms.append((time.perf_counter() - t1) * 1000.0)
                 if slam.imu_ready and ready is None:
                     ready = i
+                if len(slam.loop_events) > n_loops:
+                    fire_frames.append(i)
             slam.flush()
             _sync(scene.dev)
             wall = time.perf_counter() - t0
@@ -1040,6 +1065,7 @@ def run_path_g(scene, pipeline: int, count_syncs: bool):
                e[3] == T.OK for e in slam.trajectory
                if slam.imu_init_time is not None and e[0] <= slam.imu_init_time])),
            "imu_ready_frame": ready, "scale_log": slam.scale_log,
+           "loop_fire_frames": fire_frames,
            "bg": slam.bg.cpu().tolist(), "ba": slam.ba.cpu().tolist(),
            "bg_true": BG_TRUE, "ba_true": BA_TRUE,
            "vi_refines": slam.vi_refines, "vi_ba_runs": slam.vi_ba_runs,
@@ -1134,6 +1160,196 @@ def phase_path_d(scene, lost_frame: int = 60, replay_from: int = 20, replay_to: 
     return res
 
 
+def path_h_settings(extra: str = "", fx: float = 458.0) -> str:
+    """Path H's settings file: the reference's cv::FileStorage style."""
+    return (f'%YAML:1.0\nFile.version: "1.0"\nCamera.type: "PinHole"\n'
+            f"Camera1.fx: {fx}\nCamera1.fy: {fx}\nCamera1.cx: {W / 2.0}\n"
+            f"Camera1.cy: {H / 2.0}\nCamera.width: {W}\nCamera.height: {H}\n"
+            f"Camera.fps: 30.0\nIMU.NoiseGyro: 1.7e-4\nIMU.NoiseAcc: 2.0e-3\n"
+            f"IMU.GyroWalk: 1.9e-5\nIMU.AccWalk: 3.0e-3\nIMU.Frequency: {IMU_HZ}\n"
+            f"ORBextractor.nFeatures: {NK}\nloopClosing: 1\n{extra}\n")
+
+
+def write_path_h_tree(root: str, n_frames: int = H_FRAMES) -> dict:
+    """Path G's scene (the ring photo world at 480x640, orbit_with_imu at
+    1/30 s with its simulated IMU noise and biases) written as an EuRoC mav0/
+    tree with write_euroc_sequence; a reference-style settings file (PinHole,
+    ORBextractor.nFeatures 1024, path G's IMU noise densities at 200 Hz,
+    loopClosing 1, System.SaveAtlasToFile) and a second one that resumes
+    from the saved atlas; the shipped synth weights as official-layout .pth
+    files. Returns the paths."""
+    from rover_slam_tpu_torch.models import weights as Wt
+    from rover_slam_tpu_torch.utils import synthetic
+    fx = 458.0
+    cam = np.asarray([fx, fx, W / 2.0, H / 2.0, 0, 0, 0, 0], np.float32)
+    world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0, image_hw=(H, W),
+                                       layout="ring", ring_orbit_radius=5.0)
+    world = world._replace(cam_params=cam)
+    R, t, times, _, imu = synthetic.orbit_with_imu(
+        n_frames=n_frames, orbit_radius=5.0, revs=1.1 * n_frames / 160.0,
+        dt=1.0 / 30.0, hz=IMU_HZ)
+    mav0, gt = synthetic.write_euroc_sequence(os.path.join(root, "mav0"), world, R, t, times,
+                                              imu=imu)
+    out = {"mav0": mav0, "gt": gt, "atlas": os.path.join(root, "atlas.npz"),
+           "settings": os.path.join(root, "settings.yaml"),
+           "settings_resume": os.path.join(root, "settings_resume.yaml"),
+           "sp": os.path.join(root, "superpoint_synth.pth"),
+           "lg": os.path.join(root, "lightglue_synth.pth")}
+    with open(out["settings"], "w") as f:
+        f.write(path_h_settings(f'System.SaveAtlasToFile: "{out["atlas"]}"'))
+    with open(out["settings_resume"], "w") as f:
+        f.write(path_h_settings(f'System.LoadAtlasFromFile: "{out["atlas"]}"'))
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rover_slam_tpu", "assets")
+    torch.save(Wt.superpoint_state_dict(Wt.load_flat_npz(
+        os.path.join(assets, "superpoint_synth.npz"))), out["sp"])
+    torch.save(Wt.lightglue_official_state_dict(Wt.load_flat_npz(
+        os.path.join(assets, "lightglue_synth.npz")), LIGHTGLUE_LAYERS), out["lg"])
+    return out
+
+
+def _frame_stats(log_path: str) -> dict:
+    from rover_slam_tpu_torch.slam import tracking as T
+    with open(log_path) as f:
+        fl = json.load(f)
+    fr = fl["frames"]
+    total = np.asarray([x["read_ms"] + x["extract_ms"] + x["track_ms"] for x in fr])
+    ready = [i for i, x in enumerate(fr) if x["imu_ready"]]
+    return {"frames": len(fr), "fps": len(fr) / fl["wall_s"],
+            "frame_ms_median": float(np.median(total)),
+            "frame_ms_p95": float(np.percentile(total, 95)),
+            "frame_ms_max": float(total.max()),
+            "read_ms_median": float(np.median([x["read_ms"] for x in fr])),
+            "read_ms_max": float(max(x["read_ms"] for x in fr)),
+            "extract_ms_median": float(np.median([x["extract_ms"] for x in fr])),
+            "track_ms_median": float(np.median([x["track_ms"] for x in fr])),
+            "frames_tracked": sum(x["state"] == T.OK for x in fr),
+            "imu_ready_frame": ready[0] if ready else None,
+            "imu_init_scale": next((v for k, v in fl["scale_log"] if k == "init"), None),
+            "n_kf_loaded": fl["n_kf_loaded"]}
+
+
+def _write_png_gray8(path: str, img: np.ndarray):
+    """An 8-bit gray PNG, rows alternately unfiltered and Up-filtered."""
+    import zlib
+
+    def chunk(tag, body):
+        return (len(body).to_bytes(4, "big") + tag + body
+                + zlib.crc32(tag + body).to_bytes(4, "big"))
+
+    h, w = img.shape
+    prev = np.zeros(w, np.uint8)
+    rows = []
+    for y in range(h):
+        up = y % 2 == 1
+        rows.append((b"\x02" if up else b"\x00") + (img[y] - prev if up else img[y]).tobytes())
+        prev = img[y]
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 0, 0, 0, 0])
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+
+
+def png_prefetch_check(tree: dict, tmp_root: str) -> dict:
+    """Real EuRoC trees hold PNG frames: the first frame of the tree,
+    rewritten as PNG, must come through ImagePrefetcher equal to its PGM
+    (natively with libpng, else through the pure-Python reader)."""
+    from rover_slam_tpu_torch.utils import dataset
+    pgm = dataset.load_euroc_sequence(tree["mav0"])["image_paths"][0]
+    img = dataset.read_image(pgm)
+    png = os.path.join(tmp_root, "frame0.png")
+    _write_png_gray8(png, img)
+    t0 = time.perf_counter()
+    pf = dataset.ImagePrefetcher([png, pgm, png], depth=2)
+    try:
+        got = [pf.get(i) for i in range(3)]
+    finally:
+        pf.close()
+    if not all(np.array_equal(g, img) for g in got):
+        raise AssertionError("path H: a PNG frame prefetched unequal to its PGM")
+    return {"native_png": bool(dataset._lib.dataset_has_png()),
+            "png_prefetch_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def phase_path_h(tmp_root: str):
+    """The EuRoC app on the card: write_path_h_tree, then session 1,
+    run_euroc.main with the monocular-inertial sensor, both official-layout
+    checkpoints (SuperPoint, and LightGlue as the frame matcher: B1), --gt,
+    --stats-out and the atlas saved through the settings; the atlas passes
+    the checksum gate; the port's ATE CLI scores session 1's TUM file
+    (metric: --no_scale); session 2 resumes the atlas through
+    System.LoadAtlasFromFile for a short monocular run over the first
+    frames. Before the sessions, png_prefetch_check reads a PNG frame
+    through the prefetcher. Fails when an app run does not return 0, the
+    IMU does not initialize, session 1 tracks under H_TRACKED_MIN of its
+    frames or its metric ATE exceeds H_ATE_BOUND_CM, the checksum gate
+    refuses the atlas, session 2 does not load the stored keyframes, or
+    B1 / B2 were not launched."""
+    from rover_slam_tpu_torch.apps import run_euroc
+    from rover_slam_tpu_torch.map import atlas
+    t_w = time.perf_counter()
+    tree = write_path_h_tree(tmp_root)
+    write_s = time.perf_counter() - t_w
+    png = png_prefetch_check(tree, tmp_root)
+    common = ["--superpoint-ckpt", tree["sp"], "--lightglue-ckpt", tree["lg"]]
+    s1 = {k: os.path.join(tmp_root, f"session1_{k}") for k in ("traj", "stats", "frames")}
+    _reset_launches()
+    rc1 = run_euroc.main([tree["settings"], tree["mav0"], "--sensor", "monocular-inertial",
+                          "--out", s1["traj"], "--gt", tree["gt"], "--stats-out", s1["stats"],
+                          "--frame-log", s1["frames"], *common])
+    l1 = _launches()
+    if rc1 != 0:
+        raise AssertionError(f"path H session 1: run_euroc returned {rc1}")
+    with open(s1["stats"]) as f:
+        stats1 = json.load(f)
+    fs1 = _frame_stats(s1["frames"])
+    stored = atlas.load_atlas(tree["atlas"])            # the checksum gate
+    stored_kf = int(stored.n_kf)
+    cli = subprocess.run([sys.executable, "-m", "rover_slam_tpu_torch.apps.evaluate_ate_scale",
+                          tree["gt"], s1["traj"], "--no_scale"], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=120)
+    if cli.returncode != 0:
+        raise AssertionError(f"path H: evaluate_ate_scale failed: {cli.stderr}")
+    cli_rmse, cli_scale = (float(x) for x in cli.stdout.strip().split(","))
+    s2 = {k: os.path.join(tmp_root, f"session2_{k}") for k in ("traj", "stats", "frames")}
+    _reset_launches()
+    rc2 = run_euroc.main([tree["settings_resume"], tree["mav0"], "--sensor", "monocular",
+                          "--out", s2["traj"], "--stats-out", s2["stats"],
+                          "--frame-log", s2["frames"], "--max-frames", str(H_RESUME_FRAMES),
+                          *common])
+    l2 = _launches()
+    if rc2 != 0:
+        raise AssertionError(f"path H session 2: run_euroc returned {rc2}")
+    fs2 = _frame_stats(s2["frames"])
+    launches = {k: l1[k] + l2[k] for k in ("attention", "nn")}
+    launches["attention_by_batch"] = l1["attention_by_batch"]
+    launches["nn_by_shape"] = l1["nn_by_shape"]
+    res = {"tree_write_s": write_s, "png": png, "session1": {**fs1, **stats1,
+                                                 "ate_cli_m": cli_rmse,
+                                                 "ate_cli_scale": cli_scale},
+           "atlas_kf": stored_kf,
+           "session2": {**fs2, "n_kf": json.load(open(s2["stats"]))["n_kf"]},
+           "launches_session1": {"attention": l1["attention"], "nn": l1["nn"]},
+           "launches_session2": {"attention": l2["attention"], "nn": l2["nn"]},
+           "launches": launches}
+    log("# path H:", json.dumps(res))
+    if fs1["imu_ready_frame"] is None or not stats1["imu_ready"]:
+        raise AssertionError("path H: the IMU never initialized")
+    if not fs1["frames_tracked"] >= H_TRACKED_MIN * fs1["frames"]:
+        raise AssertionError(f"path H tracked only {fs1['frames_tracked']} of "
+                             f"{fs1['frames']} frames")
+    ate = stats1["ate_cm"]
+    if not (ate is not None and math.isfinite(ate) and ate < H_ATE_BOUND_CM):
+        raise AssertionError(f"path H: metric ATE {ate} cm, bound {H_ATE_BOUND_CM} cm")
+    if not abs(cli_rmse * 100.0 - ate) < 1e-3:
+        raise AssertionError(f"path H: ATE CLI {cli_rmse} m against the app's {ate} cm")
+    if not (stored_kf == stats1["n_kf"] and fs2["n_kf_loaded"] == stored_kf > 0):
+        raise AssertionError(f"path H: session 2 loaded {fs2['n_kf_loaded']} keyframes of "
+                             f"{stored_kf} stored (session 1: {stats1['n_kf']})")
+    if not (launches["attention"] > 0 and launches["nn"] > 0):
+        raise AssertionError(f"path H: launches {launches}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1163,6 +1379,8 @@ def main():
     scene_g = PathG(dev)
     paths["G sync run 1"], paths["G sync run 2"], paths["G pipeline=4"] = phase_path_g(scene_g)
     del scene_g
+    with tempfile.TemporaryDirectory(prefix="path_h_") as tmp_root:
+        paths["H"] = phase_path_h(tmp_root)
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

@@ -3,6 +3,7 @@ full width, both on the CPU.
 
     python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--inertial]
                                 [--out rows.json]
+    python3 parity_fullwidth.py --app [--frames 120] [--tree DIR] [--out summary.json]
 
 The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
 480x640 frames rendered once with numpy at the bench's per-frame motion
@@ -39,7 +40,9 @@ samples are fed before it. The summary adds the frame at which each side's
 IMU initialized, the scale and gravity of each inertial-only solve, the final
 biases against the simulated ones, and the metric ATE (Horn without scale)
 beside the scale-aligned one, both over the frames after the init. A
-comparison script, not part of the port: it imports both packages.
+comparison script, not part of the port: it imports both packages. With
+--app both packages' EuRoC apps run on chip_smoke.py's path H tree instead
+(run_apps).
 """
 from __future__ import annotations
 
@@ -175,6 +178,74 @@ def loop_report(slam) -> dict:
             "n_hyp_checks": len(lc.hyp_log)}
 
 
+def run_apps(args):
+    """--app: chip_smoke.py's path H tree (path G's scene as an EuRoC tree,
+    its settings file and the shipped weights as official-layout .pth
+    files) through rover_slam_tpu.apps.run_euroc and then
+    rover_slam_tpu_torch.apps.run_euroc --device cpu, monocular-inertial,
+    each package with its own RANSAC draws, as a user runs them. Prints
+    each app's --stats-out, per-frame tracking states, the frame at which
+    the IMU initialized, frames tracked, the frames where the states differ
+    and the largest distance between the two TUM trajectories' positions."""
+    import tempfile
+    import chip_smoke
+    from rover_slam_tpu.apps import run_euroc as japp
+    from rover_slam_tpu_torch.apps import run_euroc as tapp
+    from rover_slam_tpu_torch.utils import trajectory
+
+    root = args.tree or tempfile.mkdtemp(prefix="path_h_")
+    tree = chip_smoke.write_path_h_tree(root, args.frames)
+    res = {}
+    for name, app, extra in (("jax", japp, []), ("torch", tapp, ["--device", "cpu"])):
+        rec = []
+        orig = app.build_system
+
+        def recording(*a, orig=orig, rec=rec, **k):
+            slam = orig(*a, **k)
+            track = slam.track_frame
+
+            def track_frame(*aa, **kk):
+                info = track(*aa, **kk)
+                rec.append((int(info["state"]), bool(getattr(slam, "imu_ready", False))))
+                return info
+
+            slam.track_frame = track_frame
+            return slam
+
+        app.build_system = recording
+        paths = {k: os.path.join(root, f"{name}_{k}") for k in ("traj", "stats")}
+        t0 = time.perf_counter()
+        try:
+            rc = app.main([tree["settings"], tree["mav0"], "--sensor", "monocular-inertial",
+                           "--out", paths["traj"], "--gt", tree["gt"],
+                           "--stats-out", paths["stats"], "--superpoint-ckpt", tree["sp"],
+                           "--lightglue-ckpt", tree["lg"], *extra])
+        finally:
+            app.build_system = orig
+        with open(paths["stats"]) as f:
+            stats = json.load(f)
+        ready = [i for i, (_, r) in enumerate(rec) if r]
+        res[name] = {"rc": rc, "seconds": time.perf_counter() - t0, "stats": stats,
+                     "imu_ready_frame": ready[0] if ready else None,
+                     "frames_tracked": sum(st == 2 for st, _ in rec),
+                     "states": [st for st, _ in rec]}
+        print(f"# {name}:", json.dumps({k: v for k, v in res[name].items() if k != "states"}),
+              flush=True)
+    sj, st = res["jax"]["states"], res["torch"]["states"]
+    _, pj, _ = trajectory.load_tum(os.path.join(root, "jax_traj"))
+    _, pt, _ = trajectory.load_tum(os.path.join(root, "torch_traj"))
+    n = min(len(pj), len(pt))
+    summary = {"frames": args.frames, "states_equal": sum(a == b for a, b in zip(sj, st)),
+               "states_differ_at": [i for i, (a, b) in enumerate(zip(sj, st)) if a != b],
+               "traj_max_dist_m": float(np.linalg.norm(pj[:n] - pt[:n], axis=1).max()),
+               "jax": {k: v for k, v in res["jax"].items() if k != "states"},
+               "torch": {k: v for k, v in res["torch"].items() if k != "states"}}
+    print("# summary:", json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"summary": summary, "states": {"jax": sj, "torch": st}}, f)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
@@ -183,9 +254,14 @@ def main():
                     help="loop closing on, LoopConfig(min_covis_weight=30) (bench.py's)")
     ap.add_argument("--inertial", action="store_true",
                     help="MonocularInertialSLAM on chip_smoke.py's path G scene")
+    ap.add_argument("--app", action="store_true",
+                    help="both packages' run_euroc apps on chip_smoke.py's path H tree")
+    ap.add_argument("--tree", default=None, help="--app: directory for the EuRoC tree")
     ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.app:
+        return run_apps(args)
 
     import jax
     import jax.numpy as jnp

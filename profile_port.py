@@ -323,14 +323,22 @@ def main():
         start, end = max(fire - 2, WARM), min(fire + chunks + 2, args.frames)
     window = end - start
     slam = scene.new_slam(pipeline=args.pipeline, loop=args.loop or args.inertial)
+    fire_frames = []
+
+    def step(i):
+        n_loops = len(getattr(slam, "loop_events", []))
+        scene.step(slam, i)
+        if len(getattr(slam, "loop_events", [])) > n_loops:
+            fire_frames.append(i)
+
     warm = min(start, WARM) if args.pipeline else start
     for i in range(warm):
-        scene.step(slam, i)
+        step(i)
     if args.pipeline:
         slam.flush()           # bench.py's warm-up ends so
         slam.precompile()
     for i in range(warm, start):
-        scene.step(slam, i)
+        step(i)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -338,7 +346,7 @@ def main():
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for i in range(start, end):
-                    scene.step(slam, i)
+                    step(i)
                 slam.flush()
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
@@ -385,6 +393,7 @@ def main():
     if args.inertial:
         out["imu_ready"] = slam.imu_ready
         out["scale_log"] = slam.scale_log
+        out["loop_fire_frames"] = fire_frames
         out["stage_count"] = {k: v["count"] for k, v in slam.timers.summary().items()}
         out["preintegration"] = preint_census(scene, slam)
     print(json.dumps(out, indent=1))

@@ -97,10 +97,12 @@ def _epi_chi2(E, x1, x2, sigma2):
 
 
 def _h_chi2(H, x1, x2, sigma2):
-    """Symmetric transfer chi2 per point; H [...,3,3]."""
+    """Symmetric transfer chi2 per point; H [...,3,3]. A singular H (a
+    degenerate sample) gets a non-finite inverse and scores nothing, as
+    jnp.linalg.inv gives it, instead of raising."""
     p1, p2 = _homog(x1), _homog(x2)
     Hp1 = p1 @ H.transpose(-1, -2)
-    Hinv = torch.linalg.inv(H + 1e-12 * torch.eye(3, device=H.device))
+    Hinv = torch.linalg.inv_ex(H + 1e-12 * torch.eye(3, device=H.device)).inverse
     Hp2 = p2 @ Hinv.transpose(-1, -2)
 
     def dehom(P):
@@ -214,7 +216,6 @@ def reconstruct(x1, x2, mask, generator: torch.Generator | None = None,
     """Full two-view reconstruction. x1, x2: [M,2] matched z=1-plane coords;
     mask [M] valid matches; sigma_n measurement sigma in normalized units.
     `samples` [n_hyp, 8] overrides the RANSAC draws."""
-    dev = x1.device
     sigma2 = sigma_n * sigma_n
     if samples is None:
         samples = draw_samples(mask, n_hyp, generator)
@@ -241,9 +242,25 @@ def reconstruct(x1, x2, mask, generator: torch.Generator | None = None,
 
     # LO-RANSAC: refit the top-8 essential hypotheses on their consensus.
     _, top_idx = top_k(scores_F, 8)
-    E_b, inl_b = Es[top_idx], inl_F[top_idx]
+    inl_H = (h1[best_H] < CHI2_H) & (h2[best_H] < CHI2_H) & mask
+    return select_motion(x1, x2, mask, Es[top_idx], inl_F[top_idx], Hs[best_H], inl_H,
+                         use_H, sigma2, min_inliers)
+
+
+def select_motion(x1, x2, mask, E_top, inl_top, H_best, inl_H, use_H, sigma2: float,
+                  min_inliers: int) -> TwoViewResult:
+    """`reconstruct` past its hypothesis scoring: the LO refit of the leading
+    essential hypotheses E_top [k,3,3] on their inlier sets inl_top [k,M],
+    the candidate motions of the refit winner and of the best homography
+    H_best (inliers inl_H), model selection by use_H, and the triangulation
+    gate. Split out so that a caller can hand in another runtime's leaders:
+    a minimal sample that repeats a match leaves its 8-point fit to the SVD's
+    rounding, so the leaders themselves are not a function of the inputs."""
+    dev = x1.device
+    k = E_top.shape[0]
+    E_b, inl_b = E_top, inl_top
     for _ in range(3):
-        E_r = _eight_point_E(x1.expand(8, -1, -1), x2.expand(8, -1, -1), inl_b.float())
+        E_r = _eight_point_E(x1.expand(k, -1, -1), x2.expand(k, -1, -1), inl_b.float())
         e1r, e2r = _epi_chi2(E_r, x1, x2, sigma2)
         inl_r = (e1r < CHI2_F) & (e2r < CHI2_F) & mask
         better = inl_r.sum(1) >= inl_b.sum(1)
@@ -254,13 +271,12 @@ def reconstruct(x1, x2, mask, generator: torch.Generator | None = None,
     inl_F_best = inl_b[best_lo]
 
     Rs_E, ts_E = _decompose_E(E_best)
-    Rs_H, ts_H = _decompose_H(Hs[best_H])
+    Rs_H, ts_H = _decompose_H(H_best)
     Rs = torch.cat([Rs_E, Rs_H])
     ts = torch.cat([ts_E, ts_H])
     model_mask_E = torch.arange(12, device=dev) < 4
     model_sel = torch.where(use_H, ~model_mask_E, model_mask_E)
-    inlier_mask = torch.where(use_H, (h1[best_H] < CHI2_H) & (h2[best_H] < CHI2_H) & mask,
-                              inl_F_best)
+    inlier_mask = torch.where(use_H, inl_H, inl_F_best)
     outs = [_score_motion(Rs[i], ts[i], x1, x2, inlier_mask, sigma2) for i in range(12)]
     n_goods = torch.stack([o[0] for o in outs])
     Xws = torch.stack([o[1] for o in outs])

@@ -329,3 +329,15 @@ def remap_landmark_refs(lidx: torch.Tensor, lm_old2new: torch.Tensor) -> torch.T
     """A frame's per-keypoint landmark ids through a compaction table."""
     L = lm_old2new.shape[0]
     return torch.where(lidx >= 0, lm_old2new[lidx.long().clamp(0, L - 1)], -1).to(torch.int32)
+
+
+def compute_normals_and_depths(state: MapState) -> MapState:
+    """Landmark viewing normals from their anchor keyframes' centres (the
+    anchor-based part of the reference's MapPoint::UpdateNormalAndDepth);
+    inactive landmarks keep theirs."""
+    anchor = torch.clamp(state.lm_anchor_kf, 0, state.K - 1).long()
+    R_cw, t_cw = state.kf_R_cw[anchor], state.kf_t_cw[anchor]
+    centers = -torch.einsum("lji,lj->li", R_cw, t_cw)
+    d = state.lm_pos - centers
+    n = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-9)
+    return state.replace(lm_normal=torch.where(state.lm_active[:, None], n, state.lm_normal))

@@ -227,3 +227,53 @@ class LightGlueFrameMatcher:
         k0 = normalize_keypoints(kpts0, self.image_hw)
         k1 = normalize_keypoints(kpts1, self.image_hw)
         return self.matcher(k0, desc0, valid0, k1, desc1, valid1)["matches0"]
+
+
+def load_torch_weights(path: str, num_layers: int = 9, dim: int = 256) -> dict:
+    """The official LightGlue checkpoint (github.com/cvg/LightGlue
+    `superpoint_lightglue.pth`: weights under `transformers.{i}.self_attn /
+    cross_attn`) as the parameter tree LightGlueMatcher takes (the JAX
+    package's layout, numpy float32). The self block's fused `Wqkv` [3D, D]
+    splits into to_q / to_k / to_v; the cross block's shared `to_qk` serves as
+    both to_q and to_k; each `ffn` Sequential(Linear, LayerNorm, GELU,
+    Linear) becomes fc1 / ln / fc2; only the last layer's `log_assignment`
+    head is read (no early exit)."""
+    import numpy as np
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+
+    def t(name):   # Linear weight [out, in] -> kernel [in, out]
+        return np.ascontiguousarray(np.asarray(sd[name], np.float32).T)
+
+    def v(name):
+        return np.asarray(sd[name], np.float32)
+
+    def dense(prefix):
+        return {"kernel": t(f"{prefix}.weight"), "bias": v(f"{prefix}.bias")}
+
+    def ffn(prefix):
+        return {"fc1": dense(f"{prefix}.ffn.0"),
+                "ln": {"scale": v(f"{prefix}.ffn.1.weight"), "bias": v(f"{prefix}.ffn.1.bias")},
+                "fc2": dense(f"{prefix}.ffn.3")}
+
+    last = f"log_assignment.{num_layers - 1}"
+    params = {"input_proj": dense("input_proj"),
+              "posenc": {"Wr": {"kernel": t("posenc.Wr.weight")}},
+              "final_proj": dense(f"{last}.final_proj"),
+              "matchability": dense(f"{last}.matchability")}
+    for i in range(num_layers):
+        p = f"transformers.{i}"
+        Wqkv, bqkv = t(f"{p}.self_attn.Wqkv.weight"), v(f"{p}.self_attn.Wqkv.bias")
+        qk = dense(f"{p}.cross_attn.to_qk")
+        params[f"layer_{i}"] = {
+            "self_attn": {
+                **{n: {"kernel": Wqkv[:, j * dim:(j + 1) * dim],
+                       "bias": bqkv[j * dim:(j + 1) * dim]}
+                   for j, n in enumerate(("to_q", "to_k", "to_v"))},
+                "to_out": dense(f"{p}.self_attn.out_proj")},
+            "self_ffn": ffn(f"{p}.self_attn"),
+            "cross_attn": {"to_q": qk, "to_k": qk, "to_v": dense(f"{p}.cross_attn.to_v"),
+                           "to_out": dense(f"{p}.cross_attn.to_out")},
+            "cross_ffn": ffn(f"{p}.cross_attn")}
+    return params

@@ -142,3 +142,18 @@ class SuperPointExtractor:
         return extract_keypoints(prob, desc_coarse, max_keypoints=self.max_keypoints,
                                  nms_radius=self.nms_radius,
                                  score_threshold=self.score_threshold)
+
+
+def load_torch_weights(path: str) -> dict:
+    """The public `superpoint_v1.pth` state dict (magicleap layout:
+    conv1a ... convDb, weight [out, in, kh, kw] and bias) as the parameter
+    tree SuperPointExtractor takes (the JAX package's layout: kernels
+    [kh, kw, in, out], numpy float32)."""
+    import numpy as np
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    params = {}
+    for name in W.SUPERPOINT_LAYERS:
+        leaf = {"kernel": sd[f"{name}.weight"].float().numpy().transpose(2, 3, 1, 0),
+                "bias": np.asarray(sd[f"{name}.bias"].float().numpy())}
+        params[name] = leaf if name in ("convPb", "convDb") else {"conv": leaf}
+    return params

@@ -64,3 +64,35 @@ def lightglue_state_dict(flax_params: dict, num_layers: int | None = None) -> di
             sd[f"layers.{i}.{blk}.ln.bias"] = _t(lp[blk]["ln"]["bias"])
         i += 1
     return sd
+
+
+def lightglue_official_state_dict(flax_params: dict, num_layers: int = 9) -> dict:
+    """The tree as an official LightGlue checkpoint's state dict (the layout
+    models.lightglue.load_torch_weights reads): to_q / to_k / to_v fused into
+    the self block's `Wqkv`, cross attention's `to_qk` from the tree's to_q
+    (the official block shares one projection; the tree's to_k is dropped),
+    the ffn as Sequential indices 0 / 1 / 3, the head under the last layer's
+    `log_assignment`."""
+    sd = {}
+    _dense(sd, "input_proj", flax_params["input_proj"])
+    _dense(sd, "posenc.Wr", flax_params["posenc"]["Wr"], bias=False)
+    last = f"log_assignment.{num_layers - 1}"
+    _dense(sd, f"{last}.final_proj", flax_params["final_proj"])
+    _dense(sd, f"{last}.matchability", flax_params["matchability"])
+    for i in range(num_layers):
+        lp, p = flax_params[f"layer_{i}"], f"transformers.{i}"
+        sa, ca = lp["self_attn"], lp["cross_attn"]
+        sd[f"{p}.self_attn.Wqkv.weight"] = _t(np.concatenate(
+            [np.asarray(sa[n]["kernel"]).T for n in ("to_q", "to_k", "to_v")]))
+        sd[f"{p}.self_attn.Wqkv.bias"] = _t(np.concatenate(
+            [np.asarray(sa[n]["bias"]) for n in ("to_q", "to_k", "to_v")]))
+        _dense(sd, f"{p}.self_attn.out_proj", sa["to_out"])
+        _dense(sd, f"{p}.cross_attn.to_qk", ca["to_q"])
+        _dense(sd, f"{p}.cross_attn.to_v", ca["to_v"])
+        _dense(sd, f"{p}.cross_attn.to_out", ca["to_out"])
+        for blk, ffn in (("self_attn", lp["self_ffn"]), ("cross_attn", lp["cross_ffn"])):
+            _dense(sd, f"{p}.{blk}.ffn.0", ffn["fc1"])
+            sd[f"{p}.{blk}.ffn.1.weight"] = _t(ffn["ln"]["scale"])
+            sd[f"{p}.{blk}.ffn.1.bias"] = _t(ffn["ln"]["bias"])
+            _dense(sd, f"{p}.{blk}.ffn.3", ffn["fc2"])
+    return sd

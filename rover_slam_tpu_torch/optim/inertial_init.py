@@ -158,8 +158,14 @@ def _linear_vgs(prob: InertialInitProblem, bg, fix_scale: bool = False,
     C6 = torch.linalg.inv_ex(prob.imu_info[:, 3:9, 3:9] + 1e-8 * eye6).inverse \
         + sigma_vis ** 2 * eye6
     W6 = torch.linalg.inv_ex(C6).inverse * w_e[:, None, None]
-    lam_, U = torch.linalg.eigh(0.5 * (W6 + W6.transpose(-1, -2)))
+    # Padded and invalid slots have W6 = 0, whose square root is 0. The
+    # batched CUDA eigh leaves an all-zero matrix's eigenvalues unwritten
+    # (they hold whatever the allocator handed out), so those slots take the
+    # identity and a zero factor.
+    on = w_e[:, None, None] > 0
+    lam_, U = torch.linalg.eigh(torch.where(on, 0.5 * (W6 + W6.transpose(-1, -2)), eye6))
     Ws = U @ torch.diag_embed(torch.sqrt(torch.clamp(lam_, min=0.0))) @ U.transpose(-1, -2)
+    Ws = torch.where(on, Ws, torch.zeros_like(Ws))
     A = (Ws @ A).reshape(-1, nv)
     b = _mv(Ws, b).reshape(-1)
     if fix_scale:

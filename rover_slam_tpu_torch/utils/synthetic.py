@@ -327,3 +327,48 @@ def render_photo_frame(world: PhotoWorld, R_cw, t_cw,
             continue
         img[y0:y1, x0:x1] = pat[py0:py0 + (y1 - y0), px0:px0 + (x1 - x0)]
     return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def write_euroc_sequence(root, world: PhotoWorld, R_cw, t_cw, times,
+                         baseline: float = 0.0, imu=None,
+                         t0_ns: int = 1403636579763555584, **render_kw):
+    """Render a photometric sequence into an EuRoC mav0/ layout: cam0/data/
+    <ns>.pgm and cam0/data.csv, imu0/data.csv (imu: per-frame-gap (acc [n,3],
+    gyro [n,3], t [n]) tuples as orbit_with_imu gives them), and gt.txt, the
+    camera centres in TUM format. The same files as the JAX package's writer.
+    A stereo pair (baseline > 0) comes with slice A16. Returns (root,
+    gt_path)."""
+    import os
+    if baseline > 0:
+        raise NotImplementedError("a stereo EuRoC tree (baseline > 0) is not ported yet: "
+                                  "it comes with the stereo (A16) slice of the PyTorch "
+                                  "port (see ROADMAP.md)")
+    root = str(root)
+    os.makedirs(os.path.join(root, "cam0", "data"), exist_ok=True)
+    h, w = world.image_hw
+    with open(os.path.join(root, "cam0", "data.csv"), "w") as csv:
+        csv.write("#timestamp [ns],filename\n")
+        for i in range(len(times)):
+            ts = t0_ns + int(round(float(times[i] - times[0]) * 1e9))
+            img = render_photo_frame(world, R_cw[i], t_cw[i], **render_kw)
+            csv.write(f"{ts},{ts}.pgm\n")
+            with open(os.path.join(root, "cam0", "data", f"{ts}.pgm"), "wb") as g:
+                g.write(b"P5\n%d %d\n255\n" % (w, h) + img.tobytes())
+    if imu is not None:
+        os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+        with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,"
+                    "a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
+            for accs, gyros, tt in imu:
+                for j in range(len(tt)):
+                    ts = t0_ns + int(round(float(tt[j] - times[0]) * 1e9))
+                    gx, gy, gz = gyros[j]
+                    ax, ay, az = accs[j]
+                    f.write(f"{ts},{gx},{gy},{gz},{ax},{ay},{az}\n")
+    gt_path = os.path.join(root, "gt.txt")
+    with open(gt_path, "w") as f:
+        for i in range(len(times)):
+            p = -np.asarray(R_cw[i]).T @ np.asarray(t_cw[i])
+            t_abs = t0_ns * 1e-9 + float(times[i] - times[0])
+            f.write(f"{t_abs:.6f} {p[0]} {p[1]} {p[2]} 0 0 0 1\n")
+    return root, gt_path

@@ -90,6 +90,44 @@ def test_padded_window_and_given_gravity(sim):
     np.testing.assert_allclose(rt.v_wb.numpy(), np.asarray(rj.v_wb), rtol=0, atol=1e-4)
 
 
+def test_padded_slots_ignore_unwritten_eigenvalues(sim, monkeypatch):
+    """On the card the batched eigh leaves an all-zero matrix's eigenvalues
+    unwritten, and a padded slot's weight matrix is all zero: with the
+    allocator's NaNs there the linear solve returned NaN in one process and
+    a finite scale in another (C4). Here eigh is made to return NaN for
+    every all-zero matrix, as the card can: the padded solve is unchanged
+    and matches the JAX package's."""
+    pj, _ = _problem(sim)
+    K, pad = pj.R_wb.shape[0], 6
+
+    def padf(a, zero):
+        a = np.asarray(a)
+        tail = np.zeros((pad,) + a.shape[1:], a.dtype) if zero else np.repeat(a[-1:], pad, 0)
+        return jnp.asarray(np.concatenate([a, tail]))
+
+    pj = pj._replace(**{f: padf(getattr(pj, f), f not in ("R_wb", "p_wb"))
+                        for f in pj._fields if f.startswith("imu_") or f in ("R_wb", "p_wb")},
+                     kf_valid=jnp.asarray(np.arange(K + pad) < K))
+    pt = torch_problem(tii.InertialInitProblem, pj)
+    bg = torch.from_numpy(np.array(jii._gyro_bias_only(pj)))
+    want = tii._linear_vgs(pt, bg)
+    eigh = torch.linalg.eigh
+
+    def unwritten_for_zero(M):
+        lam, U = eigh(M)
+        zero = (M == 0).flatten(-2).all(-1)
+        return torch.where(zero[..., None], float("nan"), lam), U
+
+    monkeypatch.setattr(torch.linalg, "eigh", unwritten_for_zero)
+    got = tii._linear_vgs(pt, bg)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    vj, gj, sj = jii._linear_vgs(pj, jnp.asarray(bg.numpy()))
+    np.testing.assert_allclose(float(got[2]), float(sj), rtol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(gj), rtol=0, atol=1e-4)
+
+
 def test_apply_scaled_rotation(sim):
     R, p, v, X = (np.asarray(a, np.float32) for a in (sim[0], sim[1], sim[2], sim[5]))
     Rwg = np.asarray(jlie.so3_exp(jnp.asarray([0.1, -0.05, 0.0])))

@@ -1,9 +1,9 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
-chip_smoke.py, profile_port.py or tests/test_torch_cuda.py) imports JAX,
-Flax, Optax or the JAX package, its shipped codebooks are plain arrays, its
-entry points default to the card, and what it has not ported raises naming
-its slice (the multi-device BA, and the stereo variants of the loop path and
-of the inertial system)."""
+chip_smoke.py, profile_port.py, probe_history.py or tests/test_torch_cuda.py)
+imports JAX, Flax, Optax or the JAX package, its shipped codebooks are plain
+arrays, its entry points default to the card, and what it has not ported
+raises naming its slice (the multi-device BA, and the stereo variants of the
+loop path and of the inertial system)."""
 import ast
 import pathlib
 
@@ -25,7 +25,8 @@ CAM = np.asarray([458.0, 458.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
 
 def _port_files():
     files = sorted((ROOT / "rover_slam_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_port.py", ROOT / "tests" / "test_torch_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_port.py", ROOT / "probe_history.py",
+        ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     return files
 
@@ -146,3 +147,22 @@ def test_inertial_system_entry_point():
     assert slam.bf is None
     with pytest.raises(NotImplementedError, match="A16"):
         slam.bf = 400.0
+
+
+def test_io_modules_are_covered():
+    """The persistence, config, dataset and app modules (A14) are port files
+    this test scans; the native loader is the port's own copy."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("map/atlas.py", "utils/config.py", "utils/dataset.py", "utils/trajectory.py",
+              "utils/synthetic.py", "models/superpoint.py", "models/lightglue.py",
+              "apps/run_euroc.py", "apps/evaluate_ate_scale.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
+    assert (ROOT / "rover_slam_tpu_torch" / "native" / "dataset_loader.cc").exists()
+
+
+def test_app_entry_point_defaults_to_cuda():
+    """run_euroc runs on the card unless --device cpu is given."""
+    from rover_slam_tpu_torch.apps import run_euroc
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_euroc.main(["settings.yaml", "mav0"])

@@ -68,6 +68,20 @@ def test_pose_optimization():
 
 
 def test_two_view_reconstruct_with_injected_samples():
+    """reconstruct on the JAX package's own 400 draws. A draw that repeats a
+    match gives a rank-7 [8, 9] system whose 8-point fit (both packages read
+    row 7 of its SVD) is any vector of a 2-D null space, so LAPACK's rounding
+    picks it: on these inputs 71 of 400 such hypotheses differ between the
+    runtimes, one of them leads the port's scores, and the two RANSAC winners
+    part (0.26 and 0.31 degrees from the truth). What is defined is held:
+    every hypothesis of 8 distinct matches (E up to sign atol 1e-4, its
+    inlier flags away from the chi2 gate, its score within 0.5 plus 2.15 for
+    each match near the gate); the LO refit, model selection and triangulation on
+    the JAX package's leaders and inliers (POSE, points 1e-3); and both whole
+    results against the truth (rotation within 0.5 degree; translation
+    direction within 10 degrees, measured 6.2 for the JAX package and 1.5
+    for the port over this 0.5 m baseline at 5-15 m; >= 120 of the 140
+    matches triangulated)."""
     rng = np.random.default_rng(60)
     M = 150
     X = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M), rng.uniform(5, 15, M)],
@@ -85,16 +99,94 @@ def test_two_view_reconstruct_with_injected_samples():
     _, k1 = jax.random.split(key)
     p = jnp.asarray(mask, jnp.float32) / mask.sum()
     samples = np.asarray(jax.random.choice(k1, M, shape=(400, 8), replace=True, p=p))
-    res_t = ttv.reconstruct(torch.from_numpy(x1), torch.from_numpy(x2),
-                            torch.from_numpy(mask), samples=torch.tensor(samples))
-    assert bool(res_t.success) == bool(res_j.success) is True
-    assert bool(res_t.used_homography) == bool(res_j.used_homography)
-    np.testing.assert_allclose(res_t.R_21.numpy(), np.asarray(res_j.R_21), **POSE)
-    np.testing.assert_allclose(res_t.t_21.numpy(), np.asarray(res_j.t_21), **POSE)
+    x1t, x2t, mt = torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(mask)
+    res_t = ttv.reconstruct(x1t, x2t, mt, samples=torch.tensor(samples))
+
+    # Hypotheses and their scores.
+    sigma2 = 0.0022 ** 2
+    xs1, xs2 = jnp.asarray(x1[samples]), jnp.asarray(x2[samples])
+    E_j = jax.jit(jax.vmap(jtv._eight_point_E))(xs1, xs2)
+    e1, e2 = jax.vmap(lambda E: jtv._epi_chi2(E, jnp.asarray(x1), jnp.asarray(x2), sigma2))(E_j)
+    mj = jnp.asarray(mask)
+    scores_j = np.asarray(jnp.sum((jnp.where(e1 < jtv.CHI2_F, jtv.CHI2_H - e1, 0.0)
+                                   + jnp.where(e2 < jtv.CHI2_F, jtv.CHI2_H - e2, 0.0))
+                                  * mj, axis=1))
+    inl_j = (e1 < jtv.CHI2_F) & (e2 < jtv.CHI2_F) & mj
+    E_t = ttv._eight_point_E(torch.from_numpy(x1[samples]), torch.from_numpy(x2[samples]))
+    e1t, e2t = ttv._epi_chi2(E_t, x1t, x2t, sigma2)
+    scores_t = (torch.sum((torch.where(e1t < ttv.CHI2_F, ttv.CHI2_H - e1t, 0.0)
+                           + torch.where(e2t < ttv.CHI2_F, ttv.CHI2_H - e2t, 0.0))
+                          * mt.float(), dim=1)).numpy()
+    distinct = np.array([len(set(s)) == 8 for s in samples])
+    assert distinct.sum() >= 300
+    unit = lambda E: E / np.linalg.norm(E, axis=(1, 2), keepdims=True)  # noqa: E731
+    Ej, Et = unit(np.asarray(E_j))[distinct], unit(E_t.numpy())[distinct]
+    sign = np.sign(np.sum(Ej * Et, axis=(1, 2)))[:, None, None]
+    np.testing.assert_allclose(Et * sign, Ej, atol=1e-4, rtol=0)
+    # A match whose chi2 lies within 5 % of the gate may cross it, which moves
+    # the score by up to CHI2_H - CHI2_F = 2.15; elsewhere the per-match terms
+    # differ by under 0.16 in chi2 (measured: the worst-conditioned samples).
+    near = np.zeros(samples.shape[0], np.int64)
+    for ej, et in ((e1, e1t), (e2, e2t)):
+        ej, et = np.asarray(ej), et.numpy()
+        band = (np.abs(ej - jtv.CHI2_F) < 0.05 * jtv.CHI2_F) & mask
+        near += band.sum(1)
+        flip = ((ej < jtv.CHI2_F) != (et < jtv.CHI2_F)) & mask & ~band
+        assert not flip[distinct].any()
+    bound = 0.5 + (jtv.CHI2_H - jtv.CHI2_F) * near[distinct]
+    assert np.all(np.abs(scores_t[distinct] - scores_j[distinct]) <= bound)
+
+    # The refit and triangulation on the JAX package's leaders.
+    _, top = jax.lax.top_k(jnp.asarray(scores_j), 8)
+    top = np.asarray(top)
+    H_j = jax.vmap(jtv._four_point_H)(xs1[:, :4], xs2[:, :4])
+    h1, h2 = jax.vmap(lambda H: jtv._h_chi2(H, jnp.asarray(x1), jnp.asarray(x2), sigma2))(H_j)
+    sH = jnp.sum((jnp.where(h1 < jtv.CHI2_H, jtv.CHI2_H - h1, 0.0)
+                  + jnp.where(h2 < jtv.CHI2_H, jtv.CHI2_H - h2, 0.0)) * mj, axis=1)
+    bH = int(jnp.argmax(sH))
+    use_H = bool(sH[bH] / max(float(sH[bH]) + float(scores_j.max()), 1e-9) > 0.45)
+    assert use_H == bool(res_j.used_homography)
+    sel = ttv.select_motion(x1t, x2t, mt, torch.from_numpy(np.asarray(E_j)[top]),
+                            torch.from_numpy(np.asarray(inl_j)[top]),
+                            torch.from_numpy(np.asarray(H_j[bH])),
+                            torch.from_numpy(np.asarray((h1[bH] < jtv.CHI2_H)
+                                                        & (h2[bH] < jtv.CHI2_H) & mj)),
+                            torch.tensor(use_H), sigma2, min_inliers=50)
+    assert bool(sel.success) == bool(res_j.success) is True
+    np.testing.assert_allclose(sel.R_21.numpy(), np.asarray(res_j.R_21), **POSE)
+    np.testing.assert_allclose(sel.t_21.numpy(), np.asarray(res_j.t_21), **POSE)
     tri = np.asarray(res_j.is_triangulated)
-    np.testing.assert_array_equal(res_t.is_triangulated.numpy(), tri)
-    np.testing.assert_allclose(res_t.points3d.numpy()[tri], np.asarray(res_j.points3d)[tri],
+    np.testing.assert_array_equal(sel.is_triangulated.numpy(), tri)
+    np.testing.assert_allclose(sel.points3d.numpy()[tri], np.asarray(res_j.points3d)[tri],
                                atol=1e-3, rtol=1e-4)
+
+    # Both whole results against the truth.
+    t_dir = t / np.linalg.norm(t)
+    for res in (res_t, res_j):
+        assert bool(res.success) and not bool(res.used_homography)
+        Rr, tr = np.asarray(res.R_21), np.asarray(res.t_21)
+        ang = np.degrees(np.arccos(np.clip((np.trace(Rr.T @ R) - 1) / 2, -1, 1)))
+        assert ang < 0.5
+        assert np.degrees(np.arccos(np.clip(tr @ t_dir, -1, 1))) < 10.0
+        assert 120 <= int(np.asarray(res.is_triangulated).sum()) <= 140
+
+
+def test_singular_homography_hypothesis():
+    """A minimal sample can give an exactly singular H (the JAX draws of
+    tests/test_torch_app.py's init did): the port's transfer chi2 no longer
+    raises, and its gate rejects what jnp.linalg.inv's non-finite inverse
+    rejects in the JAX package."""
+    rng = np.random.default_rng(3)
+    x1 = rng.uniform(-0.5, 0.5, (40, 2)).astype(np.float32)
+    x2 = (x1 + 0.01).astype(np.float32)
+    H = np.asarray([[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [0.0, 0.0, 1.0]], np.float32)
+    ht = [a.numpy() for a in ttv._h_chi2(torch.from_numpy(H)[None], torch.from_numpy(x1),
+                                         torch.from_numpy(x2), 0.0022 ** 2)]
+    hj = [np.asarray(a) for a in jtv._h_chi2(jnp.asarray(H), jnp.asarray(x1),
+                                             jnp.asarray(x2), 0.0022 ** 2)]
+    for a, b in zip(ht, hj):
+        np.testing.assert_array_equal(a[0] < jtv.CHI2_H, b < jtv.CHI2_H)
+        np.testing.assert_array_equal(np.isfinite(a[0]), np.isfinite(b))
 
 
 def test_solve_ba_schur(scene):
