@@ -73,6 +73,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                gate; the ATE CLI on session 1's TUM file; session 2 resumes
                the atlas through System.LoadAtlasFromFile for a short
                monocular run. Gates in phase_path_h.
+ 13. path I  — StereoSLAM at full width: path C's scene rendered as
+               rectified stereo pairs (baseline I_BASELINE), both eyes
+               through SuperPoint as one batch, LightGlue as the frame
+               matcher, loop closing on with LoopConfig(fix_scale=True,
+               min_covis_weight=30). Run once (its trajectory digest
+               printed), >= 90 % of frames tracked, the metric ATE (no
+               scale alignment) under I_ATE_BOUND_CM, a loop fired, B1 and
+               B2 launched. Then RGBDSLAM over the first I_RGBD_FRAMES frames
+               with the renderer's true depth at the keypoints plus 1 cm of
+               noise: the metric path length within 8 % of the truth.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -127,6 +137,15 @@ H_RESUME_FRAMES = 30
 # --frames 120 (JAX 23.28 cm, port 20.97 cm; both IMU inits at frame 60).
 H_ATE_BOUND_CM = 50.0
 H_TRACKED_MIN = 0.9
+# Path I: StereoSLAM on path C's scene rendered as rectified stereo pairs.
+I_BASELINE = 0.11          # m, EuRoC's
+I_TRACKED_MIN = 0.9
+# Metric ATE bound of path I (Horn without scale over every frame): about 2x
+# the larger CPU reading of parity_fullwidth.py --stereo --frames 160 (JAX
+# 4.57 cm, port 6.45 cm; both fire one loop).
+I_ATE_BOUND_CM = 13.0
+I_RGBD_FRAMES = 40
+I_RGBD_PATH_TOL = 0.08     # tests/test_map_extras.py's TestRGBD gate
 
 
 def masked_attention_f32p(q, k, v, mask_kv):
@@ -1000,14 +1019,14 @@ class PathG(PathA):
         return self.step_image(slam, self.imgs[i], self.times[i])
 
 
-def inertial_ate_cm(slam, scene):
-    """(metric ATE, scale-aligned ATE) in cm over the frames logged after the
-    IMU init (earlier ones hold poses relative to pre-alignment keyframes)."""
+def metric_ate_cm(slam, scene, after: float):
+    """(metric ATE, scale-aligned ATE) in cm over the frames logged after
+    time `after` (with an IMU, its init: earlier frames hold poses relative
+    to pre-alignment keyframes; stereo is metric from frame 0, -inf)."""
     from rover_slam_tpu_torch.utils import trajectory
     est_t, est_R, est_tcw = slam.get_trajectory()
     est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
     gt_pos = np.stack([-scene.R_gt[i].T @ scene.t_gt[i] for i in range(len(scene.times))])
-    after = slam.imu_init_time if slam.imu_init_time is not None else math.inf
     pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, scene.times)
              if est_t[i] > after]
     if len(pairs) < 3 or not np.isfinite(est_pos[[i for i, _ in pairs]]).all():
@@ -1053,7 +1072,8 @@ def run_path_g(scene, pipeline: int, count_syncs: bool):
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     frame_ms = np.asarray(frame_ms)
     n_tracked = _tracked(slam)
-    ate_metric, ate_scaled = inertial_ate_cm(slam, scene)
+    ate_metric, ate_scaled = metric_ate_cm(
+        slam, scene, slam.imu_init_time if slam.imu_init_time is not None else math.inf)
     stages = slam.timers.summary()
     res = {"pipeline": pipeline, "frames": n_frames, "fps": n_frames / wall,
            "frame_ms_median": float(np.median(frame_ms)),
@@ -1158,6 +1178,175 @@ def phase_path_d(scene, lost_frame: int = 60, replay_from: int = 20, replay_to: 
     if not (back_ok and slam.reloc_successes >= 1 and res["attention_launches_b3"] > 0):
         raise AssertionError("path D: no relocalization back to OK")
     return res
+
+
+class PathI(PathA):
+    """Path I: path C's scene (the ring photo world at 480x640, 1.1
+    revolutions over 160 frames at 1/30 s) rendered as rectified stereo
+    pairs at I_BASELINE with render_photo_stereo; both eyes go through
+    SuperPoint as one batch of two; a factory for StereoSLAMs with loop
+    closing on."""
+
+    def render(self, R, t):
+        from rover_slam_tpu_torch.utils import synthetic
+        pair = np.stack(synthetic.render_photo_stereo(self.world, R, t, I_BASELINE))
+        return torch.from_numpy(pair.astype(np.float32) / 255.0).to(self.dev)
+
+    def new_slam(self):
+        from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
+        from rover_slam_tpu_torch.slam.stereo import StereoSLAM
+        return StereoSLAM(self.cam, I_BASELINE, config=self.cfg,
+                          map_capacity=(self.K, NK, self.L), desc_dim=D,
+                          enable_loop_closing=True,
+                          loop_config=LoopConfig(fix_scale=True, min_covis_weight=30),
+                          matcher=self.matcher, device=self.dev)
+
+    def step(self, slam, i):
+        """Both eyes through SuperPoint at once, the left unprojected, then
+        track_stereo_frame (the stereo match and LightGlue run inside)."""
+        from rover_slam_tpu_torch.geometry import cameras
+        out = self.ext(self.imgs[i])
+        k, d, v = out["keypoints"], out["descriptors"], out["valid"]
+        rays = cameras.unproject(cameras.PINHOLE, self.camt, k[0])
+        info = slam.track_stereo_frame(k[0], rays, d[0], v[0], k[1], d[1], v[1],
+                                       float(self.times[i]))
+        _sync(self.dev)
+        return info
+
+    def depth_image(self, i):
+        """The renderer's true depth at every pixel of frame i's left image
+        (the sprite painted last at the pixel, as render_photo_frame pastes
+        them; inf on the background)."""
+        world, R, t = self.world, self.R_gt[i], self.t_gt[i]
+        Xc = (np.asarray(R, np.float64) @ world.points.T).T + np.asarray(t, np.float64)
+        z = Xc[:, 2]
+        fx, fy, cx, cy = np.asarray(world.cam_params[:4], np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u, v = fx * Xc[:, 0] / z + cx, fy * Xc[:, 1] / z + cy
+        out = np.full((H, W), np.inf, np.float32)
+        p0 = world.patches.shape[1]
+        vis = np.where((z > 0.5) & (np.abs(u) < 2 * W) & (np.abs(v) < 2 * H))[0]
+        for j in vis[np.argsort(-z[vis])]:
+            zr = float(world.z0[j]) if world.z0 is not None else 8.0
+            half = (max(5, min(int(round(p0 * zr / z[j])), 4 * p0)) | 1) // 2
+            cy_j, cx_j = int(round(v[j])), int(round(u[j]))
+            out[max(0, cy_j - half):max(0, cy_j + half + 1),
+                max(0, cx_j - half):max(0, cx_j + half + 1)] = z[j]
+        return out
+
+
+def run_path_i(scene):
+    """Every frame through a fresh StereoSLAM, then flush; the result line
+    with the launches counted from 0 over the run, the stereo matches of
+    each frame and the landmarks the keyframes spawned at stereo depth."""
+    from rover_slam_tpu_torch.slam import stereo as st
+    n_frames = len(scene.imgs)
+    scene.warm_up()
+    slam = scene.new_slam()
+    spawned = []
+    spawn = st._spawn_stereo_landmarks_kernel
+
+    def counting_spawn(state, *a):
+        out = spawn(state, *a)
+        spawned.append(out.n_lm - state.n_lm)
+        return out
+
+    st._spawn_stereo_landmarks_kernel = counting_spawn
+    _reset_launches()
+    frame_ms, n_stereo, fire_frames = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for i in range(n_frames):
+            t1 = time.perf_counter()
+            n_loops = len(slam.loop_events)
+            scene.step(slam, i)
+            frame_ms.append((time.perf_counter() - t1) * 1000.0)
+            n_stereo.append((slam._stereo_depth > 0).sum())
+            if len(slam.loop_events) > n_loops:
+                fire_frames.append(i)
+        slam.flush()
+        _sync(scene.dev)
+        wall = time.perf_counter() - t0
+    finally:
+        st._spawn_stereo_landmarks_kernel = spawn
+    launches = _launches()
+    frame_ms = np.asarray(frame_ms)
+    ate_metric, ate_scaled = metric_ate_cm(slam, scene, -math.inf)
+    n_tracked = _tracked(slam)
+    res = {"frames": n_frames, "fps": n_frames / wall,
+           "frame_ms_median": float(np.median(frame_ms)),
+           "frame_ms_p95": float(np.percentile(frame_ms, 95)),
+           "frame_ms_max": float(frame_ms.max()),
+           "stereo_matches_median": float(np.median(torch.stack(n_stereo).cpu().numpy())),
+           "landmarks_from_stereo": int(sum(int(x) for x in spawned)),
+           "ate_metric_cm": ate_metric, "ate_scaled_cm": ate_scaled,
+           "frac_tracked": n_tracked / n_frames, "frames_tracked": n_tracked,
+           "loop_fire_frames": fire_frames, "n_kf": slam.n_kf,
+           "n_lm": int(slam.state.n_lm), "launches": launches,
+           "trajectory_digest": trajectory_digest(slam),
+           "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()},
+           **loop_summary(slam)}
+    log("# path I:", json.dumps(res))
+    return res
+
+
+def run_path_i_rgbd(scene, n_frames: int = I_RGBD_FRAMES):
+    """RGBDSLAM over the first n_frames of path I's left images, the depth
+    of each keypoint read from the renderer's true depth at its pixel plus
+    1 cm of seeded noise (tests/test_map_extras.py's TestRGBD); the metric
+    path length against the truth."""
+    from rover_slam_tpu_torch.geometry import cameras
+    from rover_slam_tpu_torch.slam.stereo import RGBDSLAM
+    slam = RGBDSLAM(scene.cam, depth_factor=1.0, config=scene.cfg,
+                    map_capacity=(scene.K, NK, scene.L), desc_dim=D, matcher=scene.matcher,
+                    device=scene.dev)
+    rng = np.random.default_rng(1)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        out = scene.ext(scene.imgs[i][:1])
+        kpts = out["keypoints"][0]
+        px = np.clip(np.rint(kpts.cpu().numpy()).astype(np.int64), 0, (W - 1, H - 1))
+        depth = scene.depth_image(i)[px[:, 1], px[:, 0]]
+        depth = np.where(np.isfinite(depth), depth + rng.normal(0, 0.01, depth.shape), -1.0)
+        slam.track_rgbd_frame(kpts, cameras.unproject(cameras.PINHOLE, scene.camt, kpts),
+                              out["descriptors"][0], out["valid"][0], depth.astype(np.float32),
+                              float(scene.times[i]))
+    _sync(scene.dev)
+    wall = time.perf_counter() - t0
+    est_t, est_R, est_tcw = slam.get_trajectory()
+    est = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
+    gt = np.stack([-scene.R_gt[i].T @ scene.t_gt[i] for i in range(n_frames)])
+    L_est = float(np.linalg.norm(np.diff(est, axis=0), axis=1).sum())
+    L_gt = float(np.linalg.norm(np.diff(gt[-len(est):], axis=0), axis=1).sum())
+    res = {"frames": n_frames, "fps": n_frames / wall, "frames_tracked": _tracked(slam),
+           "path_m": L_est, "path_true_m": L_gt, "path_err": abs(L_est - L_gt) / L_gt,
+           "n_kf": slam.n_kf, "launches": _launches()}
+    log("# path I RGBD:", json.dumps(res))
+    return res
+
+
+def phase_path_i(scene):
+    """StereoSLAM once (its digest printed: two runs would push the whole
+    script past ~900 s on a slow host), then the RGBD tail. The stereo run
+    must track >= I_TRACKED_MIN of its frames, hold the metric ATE (no scale
+    alignment: stereo is metric from frame 0) under I_ATE_BOUND_CM, fire a
+    loop and launch B1 and B2; the RGBD tail's metric path length must lie
+    within I_RGBD_PATH_TOL of the truth."""
+    r = run_path_i(scene)
+    if not r["frac_tracked"] >= I_TRACKED_MIN:
+        raise AssertionError(f"path I tracked only {r['frac_tracked']:.2f} of frames")
+    if not (math.isfinite(r["ate_metric_cm"]) and r["ate_metric_cm"] < I_ATE_BOUND_CM):
+        raise AssertionError(f"path I: metric ATE {r['ate_metric_cm']} cm, "
+                             f"bound {I_ATE_BOUND_CM} cm")
+    if not r["n_loops"] >= 1:
+        raise AssertionError("path I: no loop fired")
+    if not (r["launches"]["attention"] > 0 and r["launches"]["nn"] > 0):
+        raise AssertionError(f"path I: launches {r['launches']}")
+    rgbd = run_path_i_rgbd(scene)
+    if not rgbd["path_err"] < I_RGBD_PATH_TOL:
+        raise AssertionError(f"path I RGBD: path length off by {rgbd['path_err']:.3f}")
+    return r, rgbd
 
 
 def path_h_settings(extra: str = "", fx: float = 458.0) -> str:
@@ -1381,6 +1570,9 @@ def main():
     del scene_g
     with tempfile.TemporaryDirectory(prefix="path_h_") as tmp_root:
         paths["H"] = phase_path_h(tmp_root)
+    scene_i = PathI(dev, n_frames=160)
+    paths["I"], paths["I RGBD"] = phase_path_i(scene_i)
+    del scene_i
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

@@ -4,6 +4,7 @@ full width, both on the CPU.
     python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--inertial]
                                 [--out rows.json]
     python3 parity_fullwidth.py --app [--frames 120] [--tree DIR] [--out summary.json]
+    python3 parity_fullwidth.py --stereo [--frames 160] [--out rows.json]
 
 The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
 480x640 frames rendered once with numpy at the bench's per-frame motion
@@ -42,7 +43,8 @@ biases against the simulated ones, and the metric ATE (Horn without scale)
 beside the scale-aligned one, both over the frames after the init. A
 comparison script, not part of the port: it imports both packages. With
 --app both packages' EuRoC apps run on chip_smoke.py's path H tree instead
-(run_apps).
+(run_apps); with --stereo both packages' StereoSLAMs run on chip_smoke.py's
+path I scene (run_stereo).
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ BG_TRUE, BA_TRUE = (0.002, -0.001, 0.003), (-0.02, 0.03, 0.01)   # orbit_with_im
 def inertial_ate_cm(slam, gt_pos, times, after_time, trajectory):
     """(metric ATE, scale-aligned ATE) in cm over the frames logged after
     after_time: frames logged before the IMU init hold poses relative to
-    keyframes in the pre-alignment scale."""
+    keyframes in the pre-alignment scale (stereo: every frame, -inf)."""
     est_t, est_R, est_tcw = slam.get_trajectory()
     est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
     pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times)
@@ -246,6 +248,123 @@ def run_apps(args):
             json.dump({"summary": summary, "states": {"jax": sj, "torch": st}}, f)
 
 
+STEREO_BASELINE = 0.11     # m, EuRoC's
+
+
+def run_stereo(args):
+    """--stereo: chip_smoke.py's path I scene (path C's ring photo world and
+    orbit, rendered as rectified stereo pairs at STEREO_BASELINE with
+    render_photo_stereo) through both packages' StereoSLAMs, synchronous,
+    each with its own SuperPoint on both eyes and LightGlue as the frame
+    matcher, loop closing on with LoopConfig(fix_scale=True,
+    min_covis_weight=30). One line per frame (states, inliers, keyframes,
+    stereo matches of each side, the distance between the two camera
+    centres); at the end each side's metric ATE (Horn without scale: stereo
+    is metric from frame 0) beside the scale-aligned one, frames tracked
+    and the fired loops."""
+    import jax.numpy as jnp
+    import torch
+    from rover_slam_tpu.geometry import cameras as jcam
+    from rover_slam_tpu.models.lightglue import (LightGlueFrameMatcher as JLGF,
+                                                 LightGlueMatcher as JLG)
+    from rover_slam_tpu.models.superpoint import SuperPointExtractor as JSP
+    from rover_slam_tpu.slam import stereo as jst, tracking as jT
+    from rover_slam_tpu.slam.loop_closing import LoopConfig as JLoopConfig
+    from rover_slam_tpu.training import checkpoints as ckpt
+    from rover_slam_tpu.utils import trajectory
+    from rover_slam_tpu_torch.geometry import cameras as tcam
+    from rover_slam_tpu_torch.models.lightglue import (LightGlueFrameMatcher as TLGF,
+                                                       LightGlueMatcher as TLG)
+    from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor as TSP
+    from rover_slam_tpu_torch.models.weights import load_flat_npz
+    from rover_slam_tpu_torch.slam import stereo as tst, tracking as tT
+    from rover_slam_tpu_torch.slam.loop_closing import LoopConfig as TLoopConfig
+    from rover_slam_tpu_torch.utils import synthetic
+
+    F = args.frames
+    fx = 458.0
+    cam = np.asarray([fx, fx, W / 2.0, H / 2.0, 0, 0, 0, 0], np.float32)
+    world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0, image_hw=(H, W),
+                                       layout="ring", ring_orbit_radius=5.0)
+    world = world._replace(cam_params=cam)
+    R_gt, t_gt, times = synthetic.orbit_trajectory(
+        n_frames=F, orbit_radius=5.0, revs=1.1 * F / 160.0, dt=1.0 / 30.0)
+    gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(F)])
+    t0 = time.perf_counter()
+    pairs = [np.stack(synthetic.render_photo_stereo(world, R_gt[i], t_gt[i],
+                                                    STEREO_BASELINE)).astype(np.float32) / 255.0
+             for i in range(F)]
+    print(f"# rendered {F} stereo pairs in {time.perf_counter() - t0:.1f} s", flush=True)
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "rover_slam_tpu", "assets")
+    sp_path = os.path.join(assets, "superpoint_synth.npz")
+    lg_path = os.path.join(assets, "lightglue_synth.npz")
+    cfg_kw = dict(image_hw=(H, W), local_map_only=True, kf_cull_every=0,
+                  min_init_matches=40, min_inliers_local_map=20)
+    lc_kw = dict(fix_scale=True, min_covis_weight=30)
+    j_ext = JSP(params=ckpt.load_params(sp_path), image_hw=(H, W), max_keypoints=NK)
+    j_slam = jst.StereoSLAM(cam, STEREO_BASELINE, config=jT.TrackerConfig(**cfg_kw),
+                            map_capacity=CAPACITY, desc_dim=D, enable_loop_closing=True,
+                            loop_config=JLoopConfig(**lc_kw),
+                            matcher=JLGF(JLG(params=ckpt.load_params(lg_path), num_kpts=NK,
+                                             num_layers=9, threshold=0.1), (H, W)))
+    t_ext = TSP(params=load_flat_npz(sp_path), max_keypoints=NK, device="cpu")
+    t_slam = tst.StereoSLAM(cam, STEREO_BASELINE, config=tT.TrackerConfig(**cfg_kw),
+                            map_capacity=CAPACITY, desc_dim=D, enable_loop_closing=True,
+                            loop_config=TLoopConfig(**lc_kw), device="cpu",
+                            matcher=TLGF(TLG(params=load_flat_npz(lg_path), num_layers=9,
+                                             threshold=0.1, device="cpu"), (H, W)))
+    j_cam, t_cam = jnp.asarray(cam), torch.from_numpy(cam)
+    rows, secs = [], {"jax": 0.0, "torch": 0.0}
+    for i in range(F):
+        t1 = time.perf_counter()
+        o = j_ext(jnp.asarray(pairs[i]))
+        k = o["keypoints"]
+        info_j = j_slam.track_stereo_frame(
+            k[0], jcam.unproject_jit(jcam.PINHOLE, j_cam, k[0]), o["descriptors"][0],
+            o["valid"][0], k[1], o["descriptors"][1], o["valid"][1], float(times[i]))
+        n_st_j = int(np.sum(np.asarray(j_slam._stereo_depth) > 0))
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            o = t_ext(torch.from_numpy(pairs[i]))
+            k = o["keypoints"]
+            info_t = t_slam.track_stereo_frame(
+                k[0], tcam.unproject(tcam.PINHOLE, t_cam, k[0]), o["descriptors"][0],
+                o["valid"][0], k[1], o["descriptors"][1], o["valid"][1], float(times[i]))
+        n_st_t = int((t_slam._stereo_depth > 0).sum())
+        t3 = time.perf_counter()
+        secs["jax"] += t2 - t1
+        secs["torch"] += t3 - t2
+        dist = None
+        if "pose" in info_j and "pose" in info_t:
+            dist = float(np.linalg.norm(centre(info_j["pose"]) - centre(info_t["pose"])))
+        row = {"frame": i, "state": [int(info_j["state"]), int(info_t["state"])],
+               "n_inliers": [info_j.get("n_inliers"), info_t.get("n_inliers")],
+               "n_kf": [int(j_slam.n_kf), int(t_slam.n_kf)],
+               "stereo_matches": [n_st_j, n_st_t], "centre_dist": dist,
+               "s": [round(t2 - t1, 2), round(t3 - t2, 2)]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    j_slam.flush()
+    t_slam.flush()
+    summary = {"frames": F, "seconds": secs,
+               "frames_ok": {"jax": sum(r["state"][0] == jT.OK for r in rows),
+                             "torch": sum(r["state"][1] == tT.OK for r in rows)},
+               "states_equal": sum(r["state"][0] == r["state"][1] for r in rows),
+               "n_kf": [int(j_slam.n_kf), int(t_slam.n_kf)],
+               "n_lm": [int(j_slam.state.n_lm), int(t_slam.state.n_lm)],
+               "stereo_matches_median": [float(np.median([r["stereo_matches"][s]
+                                                          for r in rows])) for s in (0, 1)]}
+    for name, slam in (("jax", j_slam), ("torch", t_slam)):
+        metric, scaled = inertial_ate_cm(slam, gt_pos, times, -np.inf, trajectory)
+        summary[name] = {"ate_metric_cm": metric, "ate_scaled_cm": scaled,
+                         "loops": loop_report(slam)}
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"rows": rows, "summary": summary}, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
@@ -256,12 +375,16 @@ def main():
                     help="MonocularInertialSLAM on chip_smoke.py's path G scene")
     ap.add_argument("--app", action="store_true",
                     help="both packages' run_euroc apps on chip_smoke.py's path H tree")
+    ap.add_argument("--stereo", action="store_true",
+                    help="both packages' StereoSLAMs on chip_smoke.py's path I scene")
     ap.add_argument("--tree", default=None, help="--app: directory for the EuRoC tree")
     ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.app:
         return run_apps(args)
+    if args.stereo:
+        return run_stereo(args)
 
     import jax
     import jax.numpy as jnp

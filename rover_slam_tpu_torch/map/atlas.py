@@ -46,11 +46,8 @@ def merge_maps(state: ms.MapState, keep_id: int, absorb_id: int) -> ms.MapState:
 
 def save_atlas(state: ms.MapState, path: str, metadata: dict | None = None) -> str:
     """Write every MapState field to `path` (compressed npz) and its sha256 to
-    `path + ".meta.json"`; returns the digest. The JAX MapState's stereo
-    field `kf_kpt_invd` is written as -1 everywhere (no right-eye
-    observation), which the JAX package reads as a monocular map."""
+    `path + ".meta.json"`; returns the digest."""
     arrays = {f: getattr(state, f).cpu().numpy() for f in ms.FIELDS}
-    arrays["kf_kpt_invd"] = np.full(arrays["kf_kpt_valid"].shape, -1.0, np.float32)
     tmp = path + ".tmp"
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp + ".npz" if os.path.exists(tmp + ".npz") else tmp, path)
@@ -63,8 +60,8 @@ def save_atlas(state: ms.MapState, path: str, metadata: dict | None = None) -> s
 def load_atlas(path: str, verify: bool = True, device=None) -> ms.MapState:
     """Read a MapState written by either package. With verify, the sha256 in
     `path + ".meta.json"` must match the file (a corrupted atlas raises
-    ValueError). A stereo atlas (any kf_kpt_invd >= 0) raises
-    NotImplementedError: stereo observations belong to slice A16."""
+    ValueError). A file without kf_kpt_invd (version 1, before stereo)
+    loads as a monocular map."""
     if verify:
         with open(path + ".meta.json") as f:
             meta = json.load(f)
@@ -73,10 +70,7 @@ def load_atlas(path: str, verify: bool = True, device=None) -> ms.MapState:
             raise ValueError(f"atlas checksum mismatch: {digest} != {meta['sha256']}")
     with np.load(path) as data:
         fields = {k: data[k] for k in data.files}
-    invd = fields.pop("kf_kpt_invd", None)
-    if invd is not None and bool((invd >= 0).any()):
-        raise NotImplementedError("the atlas holds stereo observations (kf_kpt_invd); "
-                                  "stereo is slice A16 of the port")
+    fields.setdefault("kf_kpt_invd", np.full(fields["kf_kpt_valid"].shape, -1.0, np.float32))
     # Scalar counters added after a checkpoint was written default to zero.
     fields.setdefault("lm_dropped", np.zeros((), np.int32))
     return ms.map_state_from_numpy(fields, device=device)

@@ -232,11 +232,13 @@ def update_found_visible(state: ms.MapState, visible_mask, found_mask) -> ms.Map
                          lm_found=state.lm_found + found_mask.to(torch.int32))
 
 
-def _build_global_problem(state: ms.MapState, cam_params, e_cap: int | None = None):
+def _build_global_problem(state: ms.MapState, cam_params, e_cap: int | None = None,
+                          bf=None):
     """Full-map BA problem: every (keyframe, keypoint slot) observation of an
     active landmark. e_cap compacts the edge list to a static size with an
     order-preserving gather padded by edge 0 (jnp.nonzero(size=e_cap,
-    fill_value=0)). Returns (problem, gather indices or None)."""
+    fill_value=0)); with bf (stereo) the edges carry the keypoints' inverse
+    depths, gathered alike. Returns (problem, gather indices or None)."""
     K, N, L = state.K, state.N, state.L
     dev = state.device
     li = state.kf_landmark_idx
@@ -245,18 +247,22 @@ def _build_global_problem(state: ms.MapState, cam_params, e_cap: int | None = No
     e_valid = has.reshape(-1) & state.lm_active[e_lm]
     e_kf = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
     e_uv = state.kf_kpts.reshape(-1, 2)
+    e_invd = None if bf is None else state.kf_kpt_invd.reshape(-1)
     idx = None
     if e_cap is not None and e_cap < K * N:
         idx = scatterless.nonzero_static(e_valid, e_cap, 0)
         n_val = torch.sum(e_valid)
         e_kf, e_lm, e_uv = e_kf[idx], e_lm[idx], e_uv[idx]
         e_valid = torch.arange(e_cap, device=dev) < n_val
+        if e_invd is not None:
+            e_invd = e_invd[idx]
     prob = ba.BAProblem(
         R_cw=state.kf_R_cw, t_cw=state.kf_t_cw,
         pose_opt_mask=state.kf_active & (torch.arange(K, device=dev) != 0),
         lm_pos=state.lm_pos, lm_opt_mask=state.lm_active, cam_params=cam_params,
         e_kf=e_kf.to(torch.int32), e_lm=e_lm.to(torch.int32), e_uv=e_uv, e_valid=e_valid,
-        e_info=torch.ones(e_valid.shape, dtype=torch.float32, device=dev))
+        e_info=torch.ones(e_valid.shape, dtype=torch.float32, device=dev),
+        e_invd=e_invd, bf=bf)
     return prob, idx
 
 
@@ -281,13 +287,14 @@ def count_global_edges(state: ms.MapState) -> int:
 
 
 def _global_ba_single(state: ms.MapState, cam_params, cam_kind: int, iters: int,
-                      e_cap: int | None = None, lm_cap: int | None = None) -> ms.MapState:
+                      e_cap: int | None = None, lm_cap: int | None = None,
+                      bf=None) -> ms.MapState:
     K, N, L = state.K, state.N, state.L
     if e_cap is not None and e_cap >= K * N:
         e_cap = None
     if lm_cap is not None and lm_cap >= L:
         lm_cap = None
-    prob, idx = _build_global_problem(state, cam_params, e_cap=e_cap)
+    prob, idx = _build_global_problem(state, cam_params, e_cap=e_cap, bf=bf)
     # kf_major=True as in the JAX package, also for the compacted edge list,
     # whose rows are not keyframe-major: the pose-side sums then group edges
     # by position (ROADMAP.md §C), and the port reproduces that.
@@ -307,11 +314,11 @@ def _global_ba_single(state: ms.MapState, cam_params, cam_kind: int, iters: int,
 
 
 def global_ba(state: ms.MapState, cam_params, cam_kind: int = cameras.PINHOLE,
-              iters: int = 10, mesh=None, level: int | None = None) -> ms.MapState:
+              iters: int = 10, mesh=None, bf=None, level: int | None = None) -> ms.MapState:
     """Full-map bundle adjustment (reference GlobalBundleAdjustemnt after a
     loop closure): LM with the PCG solver over every active keyframe and
     landmark, at the compaction level `level` of GBA_LEVELS (None: the whole
-    padded edge table)."""
+    padded edge table); bf adds the stereo rows."""
     if mesh is not None:
         raise NotImplementedError(
             "The landmark-sharded global BA (mesh=) is not ported yet: it comes "
@@ -320,4 +327,4 @@ def global_ba(state: ms.MapState, cam_params, cam_kind: int = cameras.PINHOLE,
     if level is not None:
         e_cap, lm_cap = GBA_LEVELS[min(level, len(GBA_LEVELS) - 1)]
     return _global_ba_single(state, cam_params, cam_kind=cam_kind, iters=iters,
-                             e_cap=e_cap, lm_cap=lm_cap)
+                             e_cap=e_cap, lm_cap=lm_cap, bf=bf)

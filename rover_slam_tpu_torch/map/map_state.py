@@ -17,7 +17,8 @@ import torch
 from ..ops import scatterless
 
 FIELDS = ("kf_R_cw", "kf_t_cw", "kf_R_wb", "kf_p_wb", "kf_v_wb", "kf_bg", "kf_ba",
-          "kf_time", "kf_kpts", "kf_rays", "kf_desc", "kf_kpt_valid", "kf_landmark_idx",
+          "kf_time", "kf_kpts", "kf_rays", "kf_desc", "kf_kpt_valid", "kf_kpt_invd",
+          "kf_landmark_idx",
           "kf_active", "kf_map_id",
           "kf_parent", "kf_loop_edges", "lm_pos", "lm_desc", "lm_normal", "lm_active",
           "lm_map_id", "lm_anchor_kf", "lm_n_obs", "lm_found", "lm_visible",
@@ -39,6 +40,9 @@ class MapState:
     kf_rays: torch.Tensor        # [K,N,3] bearing rays (z=1)
     kf_desc: torch.Tensor        # [K,N,D]
     kf_kpt_valid: torch.Tensor   # [K,N] bool
+    kf_kpt_invd: torch.Tensor    # [K,N] stereo inverse depth of the keypoint
+                                 # (-1 = mono / no right-eye match): the metric
+                                 # observation of every solver's third row
     kf_landmark_idx: torch.Tensor  # [K,N] int32, -1 = no landmark
     kf_active: torch.Tensor      # [K] bool
     kf_map_id: torch.Tensor      # [K] int32
@@ -97,6 +101,7 @@ def empty_map(K: int = 256, N: int = 1024, L: int = 16384, D: int = 256,
         kf_p_wb=z(K, 3), kf_v_wb=z(K, 3), kf_bg=z(K, 3), kf_ba=z(K, 3),
         kf_time=z(K), kf_kpts=z(K, N, 2), kf_rays=z(K, N, 3),
         kf_desc=z(K, N, D), kf_kpt_valid=z(K, N, dtype=torch.bool),
+        kf_kpt_invd=full((K, N), -1.0, f),
         kf_landmark_idx=full((K, N), -1, i32), kf_active=z(K, dtype=torch.bool),
         kf_map_id=z(K, dtype=i32), kf_parent=full((K,), -1, i32),
         kf_loop_edges=z(K, K, dtype=torch.bool),
@@ -125,9 +130,10 @@ def _set_row(arr: torch.Tensor, k: torch.Tensor, ok: torch.Tensor, val) -> torch
 
 def add_keyframe(state: MapState, R_cw, t_cw, kpts, rays, desc, kpt_valid,
                  landmark_idx, time, R_wb=None, p_wb=None, v_wb=None, bg=None, ba=None,
-                 parent=None):
+                 parent=None, kpt_invd=None):
     """Insert a keyframe at the next free slot; the write is dropped when the
-    table is full. The body state (R_wb ... ba) is written where given.
+    table is full. The body state (R_wb ... ba) is written where given;
+    kpt_invd [N] is the stereo inverse depth (-1 everywhere when None).
     Returns (new_state, kf_id)."""
     k = state.n_kf
     ok = k < state.K
@@ -147,6 +153,8 @@ def add_keyframe(state: MapState, R_cw, t_cw, kpts, rays, desc, kpt_valid,
         kf_rays=_set_row(state.kf_rays, kc, ok, rays),
         kf_desc=_set_row(state.kf_desc, kc, ok, desc),
         kf_kpt_valid=_set_row(state.kf_kpt_valid, kc, ok, kpt_valid),
+        kf_kpt_invd=_set_row(state.kf_kpt_invd, kc, ok, -1.0 if kpt_invd is None
+                             else kpt_invd),
         kf_landmark_idx=_set_row(state.kf_landmark_idx, kc, ok, landmark_idx),
         kf_time=_set_row(state.kf_time, kc, ok, time),
         kf_active=_set_row(state.kf_active, kc, ok, ok),
@@ -307,6 +315,7 @@ def compact_map(state: MapState):
         kf_bg=gk(state.kf_bg), kf_ba=gk(state.kf_ba), kf_time=gk(state.kf_time),
         kf_kpts=gk(state.kf_kpts), kf_rays=gk(state.kf_rays), kf_desc=gk(state.kf_desc),
         kf_kpt_valid=gk(state.kf_kpt_valid, False),
+        kf_kpt_invd=gk(state.kf_kpt_invd, -1.0),
         kf_landmark_idx=li_new.to(torch.int32),
         kf_active=kf_live & gk(state.kf_active),
         kf_map_id=gk(state.kf_map_id),

@@ -40,6 +40,14 @@ class BAProblem(NamedTuple):
     e_uv: torch.Tensor          # [E,2] measured pixels
     e_valid: torch.Tensor       # [E] bool
     e_info: torch.Tensor        # [E] inverse measurement variance
+    # Stereo observations (None = mono problem): per-edge measured inverse
+    # depth (<= 0 where the keypoint has no right-eye match) and bf =
+    # baseline*fx. Edges with e_invd > 0 are the reference's 3-dim
+    # (u_L, v_L, u_R) edges with the 7.815 chi2 gate
+    # (EdgeStereoSE3ProjectXYZ); for fisheye (KB8) the third row is the pure
+    # inverse-depth term, as in the JAX package.
+    e_invd: torch.Tensor = None  # [E] or None
+    bf: torch.Tensor = None      # scalar
 
 
 class BAResult(NamedTuple):
@@ -50,12 +58,33 @@ class BAResult(NamedTuple):
     e_inlier: torch.Tensor
 
 
+def stereo_row(cam_kind, e, G, Xc, invd, bf):
+    """Append the stereo residual row to e [M,2] and de/dXc G [M,2,3]:
+    u_R_meas - u_R_hat = (u_L_meas - bf*invd) - (u_L_hat - bf/z), that is
+    r3 = rect*e_u - bf*(invd - 1/z), zero where invd <= 0 (rect = 0 for
+    fisheye, where only the inverse-depth term holds). Shared by every
+    solver, as the reference's EdgeStereo* share one error."""
+    z = torch.clamp(Xc[..., 2], min=1e-6)
+    has3 = (invd > 0).float()
+    rect = 1.0 if cam_kind == cameras.PINHOLE else 0.0
+    r3 = rect * e[:, 0] - bf * (invd - 1.0 / z)
+    ez = torch.zeros_like(G[:, :1, :])
+    ez[:, 0, 2] = bf / (z * z)
+    G3 = rect * G[:, :1, :] - ez
+    return (torch.cat([e, (has3 * r3)[:, None]], dim=1),
+            torch.cat([G, has3[:, None, None] * G3], dim=1))
+
+
 def _edge_terms(cam_kind, prob: BAProblem, R, t, X):
-    """Residuals e [E,2], Jacobians Jc [E,2,6] and Jl [E,2,3], depth [E]."""
+    """Residuals e [E,D], Jacobians Jc [E,D,6] and Jl [E,D,3], depth [E]; D = 2
+    for mono problems, 3 with stereo observations (the third row is zero on
+    mono edges; see BAProblem.e_invd)."""
     Re = R[prob.e_kf.long()]
     Xc = lie.se3_apply(Re, t[prob.e_kf.long()], X[prob.e_lm.long()])
     e = prob.e_uv - cameras.project(cam_kind, prob.cam_params, Xc)
     G = -cameras.project_jac(cam_kind, prob.cam_params, Xc)
+    if prob.e_invd is not None and prob.bf is not None:
+        e, G = stereo_row(cam_kind, e, G, Xc, prob.e_invd, prob.bf)
     Jc = torch.cat([G, -torch.einsum("eij,ejk->eik", G, lie.so3_hat(Xc))], dim=-1)
     Jl = torch.einsum("eij,ejk->eik", G, Re)
     return e, Jc, Jl, Xc[..., 2]
@@ -93,7 +122,9 @@ def solve_ba(prob: BAProblem, cam_kind: int = cameras.PINHOLE, iters: int = 10,
     lm_tgt = torch.where(lmask_c, var_c, L_full)
     pmask = prob.pose_opt_mask.float()[:, None]
     lmask = lmask_c.float()[:, None]
-    delta2 = chi2_th
+    # Per-edge chi2 gate: 7.815 on stereo (3-dim) edges, chi2_th on mono ones.
+    delta2 = (torch.where(prob.e_invd > 0, robust.CHI2_STEREO, chi2_th)
+              if prob.e_invd is not None else chi2_th)
     E = prob.e_kf.shape[0]
     Ne = E // Kw
     e_kf = prob.e_kf.long()

@@ -10,7 +10,8 @@ previous marginalization). A 30-dim damped Gauss-Newton over 4 rounds with
 the escalating chi2 gates re-classifies outliers between rounds; the anchor
 is then Schur-marginalized into the prior for the next frame. The `lax.scan`
 loops are Python loops whose accept/reject and damping stay on the device.
-Monocular edges only: the stereo third residual belongs to a later slice.
+Stereo observations (invd, bf) add the third residual row of
+optim/ba.py::stereo_row (the reference's EdgeStereoOnlyPose).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from ..geometry import lie, cameras
 from . import blockinv, robust
+from .ba import stereo_row
 from .vi_ba import IMU_FIELDS, inertial_terms, _inertial_residual
 
 CHI2_ROUNDS = (12.0, 7.5, 5.991, 5.991)
@@ -62,6 +64,8 @@ class PoseInertialProblem(NamedTuple):
     R_cb: torch.Tensor         # [3,3] body->camera
     t_cb: torch.Tensor         # [3]
     cam_params: torch.Tensor
+    invd: torch.Tensor = None  # [M] stereo inverse depth (<= 0: mono edge)
+    bf: torch.Tensor = None
 
 
 class PoseInertialResult(NamedTuple):
@@ -84,13 +88,16 @@ class PoseInertialResult(NamedTuple):
 
 
 def _reproj_frame(prob: PoseInertialProblem, cam_kind, R_wb, p_wb):
-    """Residuals [M,2], Jacobians in the frame pose [th, p] ([M,2,6]) and
-    depths of the visual edges (EdgeMonoOnlyPose: landmarks are constants)."""
+    """Residuals [M,D], Jacobians in the frame pose [th, p] ([M,D,6]) and
+    depths of the visual edges (EdgeMonoOnlyPose: landmarks are constants;
+    D = 3 with stereo observations: ba.stereo_row)."""
     y = prob.Xw - p_wb[None, :]
     Xb = torch.einsum("ji,ej->ei", R_wb, y)
     Xc = torch.einsum("ij,ej->ei", prob.R_cb, Xb) + prob.t_cb
     e = prob.uv - cameras.project(cam_kind, prob.cam_params, Xc)
     G = -cameras.project_jac(cam_kind, prob.cam_params, Xc)
+    if prob.invd is not None and prob.bf is not None:
+        e, G = stereo_row(cam_kind, e, G, Xc, prob.invd, prob.bf)
     M3 = prob.R_cb @ R_wb.T
     J_p = -torch.einsum("eij,jk->eik", G, M3)
     J_th = torch.einsum("eij,ejk->eik", torch.einsum("eij,jk->eik", G, M3), lie.so3_hat(y))
@@ -109,6 +116,13 @@ def solve_pose_inertial(prob: PoseInertialProblem, cam_kind: int = cameras.PINHO
     imu = tuple(getattr(prob, f)[None] for f in IMU_FIELDS)
     eye2D = torch.eye(2 * D, device=dev)
     fixm = torch.arange(2 * D, device=dev) < D
+    # Stereo edges: the 3-dof Huber delta, and each round's gate scaled by
+    # 7.815 / 5.991 (the reference's {15.6, 9.8, 7.815, 7.815}). The cost
+    # test keeps the mono delta, as the JAX package does.
+    huber_d2, gate_scale = robust.CHI2_MONO, 1.0
+    if prob.invd is not None:
+        huber_d2 = torch.where(prob.invd > 0, robust.CHI2_STEREO, robust.CHI2_MONO)
+        gate_scale = torch.where(prob.invd > 0, robust.CHI2_STEREO / robust.CHI2_MONO, 1.0)
 
     def imu_residual(x):
         Ra, pa, va, bga, baa, Rf, pf, vf, _, _ = x
@@ -122,8 +136,7 @@ def solve_pose_inertial(prob: PoseInertialProblem, cam_kind: int = cameras.PINHO
         g = torch.zeros((2, D), device=dev)
         e, J6, depth = _reproj_frame(prob, cam_kind, Rf, pf)
         chi2 = torch.sum(e * e, dim=-1) * prob.e_info
-        w = robust.huber_weight(chi2, robust.CHI2_MONO) if use_kernel \
-            else torch.ones_like(chi2)
+        w = robust.huber_weight(chi2, huber_d2) if use_kernel else torch.ones_like(chi2)
         w = w * prob.e_info * inlier_mask * prob.e_valid * (depth > 0.05)
         Jv = torch.nn.functional.pad(J6, (0, 9))
         wJv = Jv * w[:, None, None]
@@ -205,7 +218,7 @@ def solve_pose_inertial(prob: PoseInertialProblem, cam_kind: int = cameras.PINHO
         # Re-classify outliers at this round's gate.
         e, _, depth = _reproj_frame(prob, cam_kind, x[5], x[6])
         chi2 = torch.sum(e * e, dim=-1) * prob.e_info
-        inlier_mask = ((chi2 <= gates[rnd]) & (depth > 0.05)).float()
+        inlier_mask = ((chi2 <= gates[rnd] * gate_scale) & (depth > 0.05)).float()
 
     # Marginalization: the kernel-off Hessian at the solution over the final
     # inliers, the anchor Schur-eliminated (equilibrated before the

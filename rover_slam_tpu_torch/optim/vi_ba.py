@@ -11,8 +11,9 @@ Schur-eliminated; the reduced [15 Kw]^2 body system is Jacobi-equilibrated
 and solved by LU (`torch.linalg.solve_ex`, no error read on the host). Every
 float sum over edges goes through the sorted segment sums of
 `ops/scatterless.py`, so a solve repeats to the bit. The LM accept/reject and
-the damping stay on the device (`torch.where`). Monocular edges only: the
-stereo third residual belongs to a later slice.
+the damping stay on the device (`torch.where`). Stereo observations (e_invd,
+bf) add the third residual row of optim/ba.py::stereo_row (the reference's
+EdgeStereo) with the 7.815 chi2 gate.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ..geometry import lie, cameras
 from ..imu import preintegration as preint
 from ..ops.scatterless import seg_sum, segment_plan
 from . import robust
+from .ba import stereo_row
 from .blockinv import inv3
 
 
@@ -63,6 +65,8 @@ class VIBAProblem(NamedTuple):
     e_uv: torch.Tensor
     e_valid: torch.Tensor
     e_info: torch.Tensor
+    e_invd: torch.Tensor = None  # [E] stereo inverse depth (<= 0: mono edge)
+    bf: torch.Tensor = None
 
 
 IMU_FIELDS = ("imu_dR", "imu_dV", "imu_dP", "imu_JRg", "imu_JVg", "imu_JVa", "imu_JPg",
@@ -143,8 +147,9 @@ def inertial_terms(states_i, states_j, imu):
 
 
 def _reproj_terms(prob: VIBAProblem, cam_kind, R_wb, p_wb, X):
-    """Reprojection residuals [E,2], Jacobians in the body pose [th, p]
-    ([E,2,6]) and in the landmark ([E,2,3]), camera depth [E]."""
+    """Reprojection residuals [E,D], Jacobians in the body pose [th, p]
+    ([E,D,6]) and in the landmark ([E,D,3]), camera depth [E]; D = 3 with
+    stereo observations, ba.stereo_row."""
     e_kf, e_lm = prob.e_kf.long(), prob.e_lm.long()
     Rk, pk, Xe = R_wb[e_kf], p_wb[e_kf], X[e_lm]
     y = Xe - pk
@@ -152,6 +157,8 @@ def _reproj_terms(prob: VIBAProblem, cam_kind, R_wb, p_wb, X):
     Xc = torch.einsum("ij,ej->ei", prob.R_cb, Xb) + prob.t_cb
     e = prob.e_uv - cameras.project(cam_kind, prob.cam_params, Xc)
     G = -cameras.project_jac(cam_kind, prob.cam_params, Xc)        # de/dXc
+    if prob.e_invd is not None and prob.bf is not None:
+        e, G = stereo_row(cam_kind, e, G, Xc, prob.e_invd, prob.bf)
     # dXc/dXw = R_cb R^T = M, dXc/dp = -M, dXc/dth = M hat(Xw - p).
     M = torch.einsum("ij,ekj->eik", prob.R_cb, Rk)
     J_X = torch.einsum("eij,ejk->eik", G, M)
@@ -173,7 +180,8 @@ def solve_vi_ba(prob: VIBAProblem, cam_kind: int = cameras.PINHOLE, iters: int =
     dev = prob.R_wb.device
     pmask = (prob.pose_opt_mask & prob.kf_valid).float()
     lmask = prob.lm_opt_mask.float()
-    delta2 = chi2_th
+    delta2 = (torch.where(prob.e_invd > 0, robust.CHI2_STEREO, chi2_th)
+              if prob.e_invd is not None else chi2_th)
     imu = tuple(getattr(prob, f) for f in IMU_FIELDS)
     idx_i = torch.arange(Kw, device=dev)
     idx_j = torch.clamp(idx_i + 1, max=Kw - 1)
@@ -217,7 +225,7 @@ def solve_vi_ba(prob: VIBAProblem, cam_kind: int = cameras.PINHOLE, iters: int =
         chi2 = torch.sum(e * e, dim=-1) * prob.e_info
         w = (robust.huber_weight(chi2, delta2) * prob.e_info * prob.e_valid
              * (depth > 0.05))
-        Jc = torch.nn.functional.pad(Jc6, (0, 9))                         # [E,2,15]
+        Jc = torch.nn.functional.pad(Jc6, (0, 9))                         # [E,D,15]
         wJc = Jc * w[:, None, None]
         si, sj = imu_at(R, p, v, bg, ba)
         ri, Ji, Jj = inertial_terms(si, sj, imu)

@@ -12,8 +12,10 @@ computes both sides and selects with `torch.where` (a seed's success), so a
 branch costs no host sync. The RANSAC draws come from a torch.Generator
 seeded like the JAX package's PRNGKey; the parity tests hand in the JAX
 package's own draws (`samples`). With `use_4dof` (set by the inertial
-system) loop corrections run the 4-DoF pose graph. The stereo (`bf`) and
-multi-device (`mesh`) variants raise NotImplementedError naming their slice.
+system) loop corrections run the 4-DoF pose graph. With `bf` (set by the
+stereo systems) the welding and global BAs carry the stereo residual rows.
+The multi-device (`mesh`) variant raises NotImplementedError naming its
+slice.
 """
 from __future__ import annotations
 
@@ -471,7 +473,7 @@ def _merge_propagate_kernel(state: ms.MapState, kf_q: int, kf_c: int, P0_R, P0_t
 
 
 def _welding_ba_kernel(state: ms.MapState, kf_q: int, kf_c: int, cam_params, cam_kind: int,
-                       iters: int, nd: int, in_old):
+                       iters: int, nd: int, in_old, bf=None):
     """Two-sided welding BA after a merge: the weld windows of both sides
     (each keyframe and its nd-1 best covisibles within its own side, in_old
     [K] marking the absorbed map's keyframes), the absorbed side optimized
@@ -490,7 +492,7 @@ def _welding_ba_kernel(state: ms.MapState, kf_q: int, kf_c: int, cam_params, cam
     win_c = torch.where(dup, -1, win_c)
     window = torch.cat([win_q, win_c]).to(torch.int32)
     opt = (torch.arange(2 * nd, device=dev) >= nd) & (window > 0)
-    return _local_ba_body(state, window, opt, cam_params, cam_kind, iters)
+    return _local_ba_body(state, window, opt, cam_params, cam_kind, iters, bf=bf)
 
 
 class LoopCloser:
@@ -531,16 +533,17 @@ class LoopCloser:
         # Set by the inertial system once gravity is aligned: loop
         # corrections then keep roll, pitch and scale (the 4-DoF graph).
         self.use_4dof = False
+        # baseline*fx, set by the stereo systems: the welding and global BAs
+        # then carry the stereo rows.
+        self.bf = None
+        self._bf_cache = (None, None)
 
-    # The stereo variants of the JAX package set this.
-    @property
-    def bf(self):
-        return None
-
-    @bf.setter
-    def bf(self, value):
-        if value is not None:
-            raise _later("Stereo loop closing (bf)", "stereo (A16)")
+    def _bf_arr(self):
+        """bf as a float32 scalar tensor on the device (None for mono)."""
+        if self._bf_cache[0] != self.bf:
+            self._bf_cache = (self.bf, None if self.bf is None else
+                              torch.tensor(self.bf, dtype=torch.float32, device=self.device))
+        return self._bf_cache[1]
 
     @property
     def pose_graph_mode(self) -> str:
@@ -591,10 +594,11 @@ class LoopCloser:
                 lvl = maintenance.gba_level_for(maintenance.count_global_edges(state))
                 for lv in sorted({lvl, min(lvl + 1, len(maintenance.GBA_LEVELS) - 1)}):
                     maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                          iters=cfg.gba_chunk_iters, level=lv)
+                                          iters=cfg.gba_chunk_iters, level=lv,
+                                          bf=self._bf_arr())
             else:
                 maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                      iters=cfg.gba_iters)
+                                      iters=cfg.gba_iters, bf=self._bf_arr())
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -604,7 +608,8 @@ class LoopCloser:
         if fresh or self._gba_level is None:
             self._gba_level = maintenance.gba_level_for(maintenance.count_global_edges(state))
         return maintenance.global_ba(state, self.cam_params, cam_kind=self.cfg.cam_kind,
-                                     iters=self.cfg.gba_chunk_iters, level=self._gba_level)
+                                     iters=self.cfg.gba_chunk_iters, level=self._gba_level,
+                                     bf=self._bf_arr())
 
     def _kf_matches(self, state: ms.MapState, kf_q: int, kf_c: int):
         """Learned keyframe <-> keyframe matches (B1 at B=1), or None."""
@@ -817,7 +822,8 @@ class LoopCloser:
                     break
                 P0_R, P0_t = state.kf_R_cw, state.kf_t_cw
                 state = _welding_ba_kernel(state, kf_id, cand, self.cam_params, cfg.cam_kind,
-                                           cfg.welding_ba_iters, cfg.welding_window, in_old)
+                                           cfg.welding_ba_iters, cfg.welding_window, in_old,
+                                           bf=self._bf_arr())
                 if cfg.merge_pose_graph_iters > 0:
                     state, _ = _merge_propagate_kernel(
                         state, kf_id, cand, P0_R, P0_t, in_old, cfg.min_covis_weight,
@@ -839,7 +845,7 @@ class LoopCloser:
                 self._gba_pending = max(-(-cfg.gba_iters // cfg.gba_chunk_iters) - 1, 0)
             else:
                 state = maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                              iters=cfg.gba_iters)
+                                              iters=cfg.gba_iters, bf=self._bf_arr())
         info = {"loop": True, "candidate": cand, "query_kf": kf_id, "n_inliers": n_inl,
                 "scale": float(s), "n_fused": int(n_fused), "pg_cost": float(costs[-1])}
         self.loops_closed.append((kf_id, cand))

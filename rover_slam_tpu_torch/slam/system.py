@@ -75,6 +75,10 @@ class MonocularSLAM:
         self._pending = deque()       # FIFO of (frame, HostCopy of its flags)
         self.cam_params = torch.tensor(np.asarray(cam_params, np.float32),
                                        device=self.device)
+        # baseline*fx (the stereo and RGBD systems set it): adds the stereo
+        # residual row to every solver.
+        self.bf = None
+        self._bf_cache = (None, None)
         K, N, L = map_capacity
         self.state = ms.empty_map(K=K, N=N, L=L, D=desc_dim, device=self.device)
         self.loop_closer = None
@@ -131,6 +135,11 @@ class MonocularSLAM:
                             torch.as_tensor(rays, device=dev).float(),
                             torch.as_tensor(desc, device=dev).float(),
                             torch.as_tensor(valid, device=dev).bool(), float(time))
+        sd = getattr(self, "_stereo_depth", None)
+        if sd is not None and self.bf is not None:
+            # Stereo observation: inverse depth per keypoint (the reference
+            # keeps mvuRight / mvDepth on the Frame).
+            frame.invd = torch.where(sd > 0, 1.0 / torch.clamp(sd, min=1e-6), -1.0)
         # Subclass hook: per-frame context that the (possibly deferred)
         # finish needs, stashed at dispatch.
         self._prepare_frame(frame)
@@ -184,7 +193,7 @@ class MonocularSLAM:
                 (self.state, self._policy, self._local_mask,
                  R2, t2, cur_lm, flags) = self._dispatch_fused(
                     self.state, self._policy, mask, prev, prev_lidx, frame, R0, t0,
-                    ext_matches)
+                    ext_matches, self._bf_arr())
                 frame.fused = True
             else:
                 R2, t2, cur_lm, flags = T._track_step_body(
@@ -199,7 +208,8 @@ class MonocularSLAM:
                     max_depth=cfg.th_far_points, min_matches_ref_kf=cfg.min_matches_ref_kf,
                     motion_rounds=cfg.motion_rounds, motion_iters=cfg.motion_iters,
                     local_rounds=cfg.local_rounds, local_iters=cfg.local_iters,
-                    local_mask=self._local_mask, min_inliers_weak=cfg.min_inliers_weak)
+                    local_mask=self._local_mask, min_inliers_weak=cfg.min_inliers_weak,
+                    cur_invd=frame.invd, bf=self._bf_arr())
             frame.R_cw, frame.t_cw, frame.landmark_idx = R2, t2, cur_lm
         flags = HostCopy(flags)
 
@@ -480,8 +490,16 @@ class MonocularSLAM:
                                          frame.R_cw, frame.t_cw)
 
     # ------------------------------------------------------------------
+    def _bf_arr(self):
+        """bf as a float32 scalar tensor on the device (None for mono), made
+        once per value."""
+        if self._bf_cache[0] != self.bf:
+            self._bf_cache = (self.bf, None if self.bf is None else
+                              torch.tensor(self.bf, dtype=torch.float32, device=self.device))
+        return self._bf_cache[1]
+
     def _dispatch_fused(self, state, policy, mask, prev, prev_lidx, frame, R0, t0,
-                        ext_matches):
+                        ext_matches, bf=None):
         """The fused track+map program (shared by the product path and
         precompile)."""
         cfg = self.cfg
@@ -496,7 +514,8 @@ class MonocularSLAM:
             max_depth=cfg.th_far_points, min_matches_ref_kf=cfg.min_matches_ref_kf,
             motion_rounds=cfg.motion_rounds, motion_iters=cfg.motion_iters,
             local_rounds=cfg.local_rounds, local_iters=cfg.local_iters,
-            min_inliers_weak=cfg.min_inliers_weak, ba_every=cfg.ba_every)
+            min_inliers_weak=cfg.min_inliers_weak, ba_every=cfg.ba_every,
+            cur_invd=frame.invd, bf=bf)
 
     def precompile(self):
         """Run the steady-state paths once on a copy of the state before a
@@ -521,7 +540,7 @@ class MonocularSLAM:
                 ext = self.matcher(prev.kpts, prev.desc, prev.valid,
                                    prev.kpts, prev.desc, prev.valid)
             self._dispatch_fused(state_c, policy, state_c.lm_active.clone(), prev, prev_lidx,
-                                 prev, prev.R_cw, prev.t_cw, ext)
+                                 prev, prev.R_cw, prev.t_cw, ext, self._bf_arr())
         if self.loop_closer is not None:
             self.loop_closer.precompile(state_c)
         if self.n_kf >= 2:
@@ -614,7 +633,8 @@ class MonocularSLAM:
             frame.desc, frame.valid, frame.landmark_idx, frame.time,
             self.n_kf - 1, self.cam_params, self.cfg.cam_kind,
             self.cfg.local_window, self.cfg.fixed_window, self.cfg.ba_iters,
-            run_ba=run_ba, ext_tri_ids=ext_ids, ext_tri_matches=ext_tri)
+            run_ba=run_ba, ext_tri_ids=ext_ids, ext_tri_matches=ext_tri,
+            kpt_invd=frame.invd, bf=self._bf_arr())
         self._assign_uid(self.n_kf)
         self.n_kf += 1
         self.frames_since_kf = 0

@@ -91,6 +91,7 @@ class FrameData:
     t_cw: Optional[torch.Tensor] = None
     landmark_idx: Optional[torch.Tensor] = None
     fused: bool = False     # tracked (and maybe inserted) by _track_and_map_body
+    invd: Optional[torch.Tensor] = None   # [N] stereo inverse depth (<= 0: none)
     # Inertial systems, stashed at dispatch for the finish-time refinement:
     # the frame's preintegration segment and its IMU-predicted velocity.
     vi_seg: Optional[object] = None
@@ -136,9 +137,10 @@ def _init_map_kernel(state: ms.MapState, f0_kpts, f0_rays, f0_desc, f0_valid,
     return state, lm_idx1, scale
 
 
-def _ba_window_args(state: ms.MapState, window_ids, opt_mask, cam_params):
+def _ba_window_args(state: ms.MapState, window_ids, opt_mask, cam_params, bf=None):
     """BAProblem over a keyframe window with every keypoint slot as a padded
-    edge, keyframe-major (edge rows [k*N, (k+1)*N) belong to window kf k)."""
+    edge, keyframe-major (edge rows [k*N, (k+1)*N) belong to window kf k).
+    With bf (stereo) the edges carry the keypoints' inverse depths."""
     Kw = window_ids.shape[0]
     N, L = state.N, state.L
     win = window_ids.long().clamp(0, state.K - 1)
@@ -156,7 +158,8 @@ def _ba_window_args(state: ms.MapState, window_ids, opt_mask, cam_params):
         lm_pos=state.lm_pos, lm_opt_mask=lm_opt & state.lm_active,
         cam_params=cam_params, e_kf=e_kf, e_lm=e_lm,
         e_uv=state.kf_kpts[win].reshape(-1, 2), e_valid=e_valid,
-        e_info=torch.ones((Kw * N,), dtype=torch.float32, device=state.device))
+        e_info=torch.ones((Kw * N,), dtype=torch.float32, device=state.device),
+        e_invd=None if bf is None else state.kf_kpt_invd[win].reshape(-1), bf=bf)
 
 
 def _write_rows_last(arr, idx, rows):
@@ -170,10 +173,10 @@ def _write_rows_last(arr, idx, rows):
 
 
 def _local_ba_body(state: ms.MapState, window_ids, opt_mask, cam_params, cam_kind,
-                   iters):
+                   iters, bf=None):
     """Local BA over a keyframe window, written back into the map with the
     outlier observations removed."""
-    prob = _ba_window_args(state, window_ids, opt_mask, cam_params)
+    prob = _ba_window_args(state, window_ids, opt_mask, cam_params, bf=bf)
     res = ba.solve_ba(prob, cam_kind=cam_kind, iters=iters, lm_cap=2048)
     win = window_ids.long().clamp(0, state.K - 1)
     write = opt_mask & (window_ids >= 0)
@@ -249,10 +252,11 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
                      ext_matches=None, max_depth=100.0, min_matches_ref_kf=15,
                      motion_rounds: int = 2, motion_iters: int = 5,
                      local_rounds: int = 2, local_iters: int = 6,
-                     local_mask=None, min_inliers_weak=12):
+                     local_mask=None, min_inliers_weak=12, cur_invd=None, bf=None):
     """One frame: frame-to-frame match -> motion-model pose opt -> (on
     failure) reference-keyframe match + pose opt -> local-map projection
-    match -> pose opt. Returns (R, t, cur_lm [N] int32, flags [5] int32 =
+    match -> pose opt; with cur_invd/bf (stereo) every pose optimization has
+    the stereo rows. Returns (R, t, cur_lm [N] int32, flags [5] int32 =
     [ok, n_inliers, stage1_ok, n_cand, weak])."""
     L, K = state.L, state.K
     N = cur_kpts.shape[0]
@@ -271,7 +275,8 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
     res_m = pose_opt.pose_optimization(R_pred, t_pred, state.lm_pos[lm_c], cur_kpts,
                                        cand_ok, cam_params, cam_kind=cam_kind,
                                        rounds=motion_rounds,
-                                       iters_per_round=motion_iters, check_cost=False)
+                                       iters_per_round=motion_iters, check_cost=False,
+                                       invd=cur_invd, bf=bf)
     n_cand = torch.sum(cand_ok, dtype=torch.int32)
     motion_ok = (n_cand >= min_matches_motion) & (res_m.n_inliers >= min_inliers_track)
 
@@ -294,7 +299,7 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
                                            okc, cam_params, cam_kind=cam_kind,
                                            rounds=motion_rounds,
                                            iters_per_round=motion_iters,
-                                           check_cost=False)
+                                           check_cost=False, invd=cur_invd, bf=bf)
         ref_ok = (torch.sum(okc, dtype=torch.int32) >= min_matches_ref_kf) & \
             (res_r.n_inliers >= min_inliers_track)
         R_r, t_r = res_r.R_cw, res_r.t_cw
@@ -342,7 +347,8 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
     res_l = pose_opt.pose_optimization(R1, t1, state.lm_pos[lm_c2], cur_kpts, ok2,
                                        cam_params, cam_kind=cam_kind,
                                        rounds=local_rounds,
-                                       iters_per_round=local_iters, check_cost=False)
+                                       iters_per_round=local_iters, check_cost=False,
+                                       invd=cur_invd, bf=bf)
     cur_lm = torch.where(res_l.inliers, cur_lm, -1)
     pose_finite = torch.all(torch.isfinite(res_l.R_cw)) & torch.all(torch.isfinite(res_l.t_cw))
     ok = (res_l.n_inliers >= min_inliers_local_map) & pose_finite
@@ -369,7 +375,8 @@ def _top_covis_for_frame(state: ms.MapState, frame_lidx, frame_valid, n: int = 2
 def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lidx,
                           time, parent, cam_params, cam_kind, n_opt: int,
                           n_fixed: int, ba_iters: int, run_ba: bool = True,
-                          ba_gate=None, ext_tri_ids=None, ext_tri_matches=None):
+                          ba_gate=None, ext_tri_ids=None, ext_tri_matches=None,
+                          kpt_invd=None, bf=None):
     """Add KF -> covisibility -> triangulation against the top-2 covisible
     neighbours -> fusion -> descriptors -> windowed local BA (when run_ba and
     the bool tensor ba_gate, if given, holds) -> landmark statistics,
@@ -378,7 +385,7 @@ def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lid
     lm_dropped], local_mask [L])."""
     K, L = state.K, state.L
     state, kf_id = ms.add_keyframe(state, R, t, kpts, rays, desc, valid, lidx,
-                                   time, parent=parent)
+                                   time, parent=parent, kpt_invd=kpt_invd)
     obs = ms.observation_matrix(state)
     W = obs @ obs.T
     W.fill_diagonal_(0.0)
@@ -399,7 +406,8 @@ def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lid
     state = mnt.update_distinctive_descriptors(state, kf_id, obs=obs)
     if run_ba and (ba_gate is None or bool(ba_gate)):
         window, opt_mask = _covis_window(state, kf_id, n_opt, n_fixed)
-        state = _local_ba_body(state, window, opt_mask, cam_params, cam_kind, ba_iters)
+        state = _local_ba_body(state, window, opt_mask, cam_params, cam_kind, ba_iters,
+                               bf=bf)
 
     # Landmark statistics + culling at keyframe rate. The frustum test uses
     # the default 480x640 image, as the JAX package's insert does.
@@ -446,7 +454,7 @@ def _track_and_map_body(state: ms.MapState, policy, local_mask, prev_desc, prev_
                         ext_matches=None, max_depth=100.0, min_matches_ref_kf=15,
                         motion_rounds: int = 2, motion_iters: int = 5,
                         local_rounds: int = 2, local_iters: int = 6, min_inliers_weak=12,
-                        ba_every: int = 1):
+                        ba_every: int = 1, cur_invd=None, bf=None):
     """One frame of pipeline mode: the track step, then the keyframe policy on
     the device from this frame's own flags, then the keyframe insert when it
     fires, so the map grows at frame rate however far the host's finish lags.
@@ -472,7 +480,8 @@ def _track_and_map_body(state: ms.MapState, policy, local_mask, prev_desc, prev_
         ref_kf=torch.clamp(state.n_kf - 1, min=0), local_map_only=local_map_only,
         ext_matches=ext_matches, max_depth=max_depth, min_matches_ref_kf=min_matches_ref_kf,
         motion_rounds=motion_rounds, motion_iters=motion_iters, local_rounds=local_rounds,
-        local_iters=local_iters, local_mask=local_mask, min_inliers_weak=min_inliers_weak)
+        local_iters=local_iters, local_mask=local_mask, min_inliers_weak=min_inliers_weak,
+        cur_invd=cur_invd, bf=bf)
     ok, weak = tflags[0] > 0, tflags[4] > 0
     n_inl = tflags[1].float()
     fs, peak0, sba = policy[0], policy[1], policy[2]
@@ -488,7 +497,7 @@ def _track_and_map_body(state: ms.MapState, policy, local_mask, prev_desc, prev_
             state, R2, t2, cur_kpts, cur_rays, cur_desc, cur_valid, cur_lm, time,
             parent=torch.clamp(state.n_kf - 1, min=0), cam_params=cam_params,
             cam_kind=cam_kind, n_opt=n_opt, n_fixed=n_fixed, ba_iters=ba_iters,
-            ba_gate=None if ba_every <= 1 else ba_due)
+            ba_gate=None if ba_every <= 1 else ba_due, kpt_invd=cur_invd, bf=bf)
         lm_idx = state.kf_landmark_idx[scal[0].long().clamp(0, K - 1)]
     zero = torch.zeros_like(fs)
     sba_next = torch.where(do_insert, torch.where(ba_due, zero, sba + 1.0), sba)

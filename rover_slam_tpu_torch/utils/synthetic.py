@@ -294,12 +294,15 @@ def make_photo_world(n_sprites=600, patch=11, seed=0, layout="cloud",
                       cam, cameras.PINHOLE, image_hw, z0=z0)
 
 
-def render_photo_frame(world: PhotoWorld, R_cw, t_cw,
-                       z_ref: float = 8.0, background: float = 0.30) -> np.ndarray:
+def render_photo_frame(world: PhotoWorld, R_cw, t_cw, z_ref: float = 8.0,
+                       background: float = 0.30, t_cw_offset=None) -> np.ndarray:
     """Render one grayscale uint8 image: each visible sprite's patch pasted at
-    its projection, scaled by depth, far to near."""
+    its projection, scaled by depth, far to near. t_cw_offset shifts the
+    camera in its own frame (the right eye of render_photo_stereo)."""
     h, w = world.image_hw
     t_cw = np.asarray(t_cw, np.float64)
+    if t_cw_offset is not None:
+        t_cw = t_cw + np.asarray(t_cw_offset, np.float64)
     Xc = (np.asarray(R_cw, np.float64) @ world.points.T).T + t_cw
     z = Xc[:, 2]
     fx, fy, cx, cy = np.asarray(world.cam_params[:4], np.float64)
@@ -372,3 +375,11 @@ def write_euroc_sequence(root, world: PhotoWorld, R_cw, t_cw, times,
             t_abs = t0_ns * 1e-9 + float(times[i] - times[0])
             f.write(f"{t_abs:.6f} {p[0]} {p[1]} {p[2]} 0 0 0 1\n")
     return root, gt_path
+
+
+def render_photo_stereo(world: PhotoWorld, R_cw, t_cw, baseline: float, **kw):
+    """Rectified stereo pair: the right camera sits +baseline along the left
+    camera's x axis (t_cw_r = t_cw - [b, 0, 0]; disparity fx*b/z)."""
+    left = render_photo_frame(world, R_cw, t_cw, **kw)
+    right = render_photo_frame(world, R_cw, t_cw, t_cw_offset=[-baseline, 0.0, 0.0], **kw)
+    return left, right

@@ -61,8 +61,7 @@ def test_port_atlas_loads_in_jax(tmp_path):
         meta = json.load(f)
     assert meta["sha256"] == digest == jat._sha256(p) and meta["seq"] == "port"
     st_j = jat.load_atlas(p)
-    assert_fields_equal(st, st_j)
-    np.testing.assert_array_equal(np.asarray(st_j.kf_kpt_invd), -1.0)
+    assert_fields_equal(st, st_j)       # kf_kpt_invd, the stereo field, included
     assert_fields_equal(tat.load_atlas(p), st_j)
 
 
@@ -95,20 +94,29 @@ def test_checksum_gate(tmp_path, writer, reader):
 
 
 def test_stereo_atlas_and_old_counters(tmp_path):
-    """A stereo atlas (kf_kpt_invd >= 0) raises naming A16; a checkpoint
-    without the lm_dropped counter loads with it at zero, as in the JAX
-    package."""
+    """A stereo atlas (kf_kpt_invd >= 0) written by the JAX package loads in
+    the port with every field equal and goes back through the port's writer
+    to the JAX reader unchanged; a checkpoint without the lm_dropped counter
+    loads with it at zero, and one without kf_kpt_invd (version 1) as a
+    monocular map, as in the JAX package."""
     st_j = to_jax_state(random_state(5))
+    st_j = st_j.replace(kf_kpt_invd=st_j.kf_kpt_invd.at[0, 0].set(0.2))
     p = str(tmp_path / "stereo.npz")
-    jat.save_atlas(st_j.replace(kf_kpt_invd=st_j.kf_kpt_invd.at[0, 0].set(0.2)), p)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tat.load_atlas(p)
+    jat.save_atlas(st_j, p)
+    back = tat.load_atlas(p)
+    assert_fields_equal(back, st_j)
+    assert float(back.kf_kpt_invd[0, 0]) == np.float32(0.2)
+    p_port = str(tmp_path / "stereo_port.npz")
+    tat.save_atlas(back, p_port)
+    assert_fields_equal(back, jat.load_atlas(p_port))
     arrays = {f: np.asarray(getattr(st_j, f)) for f in st_j.__dataclass_fields__
-              if f != "lm_dropped"}
+              if f not in ("lm_dropped", "kf_kpt_invd")}
     p2 = str(tmp_path / "old.npz")
     np.savez(p2, **arrays)
-    assert int(tat.load_atlas(p2, verify=False).lm_dropped) == 0
-    assert int(jat.load_atlas(p2, verify=False).lm_dropped) == 0
+    old_t, old_j = tat.load_atlas(p2, verify=False), jat.load_atlas(p2, verify=False)
+    assert int(old_t.lm_dropped) == int(old_j.lm_dropped) == 0
+    assert_fields_equal(old_t, old_j)
+    assert bool((old_t.kf_kpt_invd == -1.0).all())
 
 
 def test_compute_normals_and_depths():

@@ -2,8 +2,8 @@
 chip_smoke.py, profile_port.py, probe_history.py or tests/test_torch_cuda.py)
 imports JAX, Flax, Optax or the JAX package, its shipped codebooks are plain
 arrays, its entry points default to the card, and what it has not ported
-raises naming its slice (the multi-device BA, and the stereo variants of the
-loop path and of the inertial system)."""
+raises naming its slice (the multi-device BA, and the stereo variant of the
+inertial system)."""
 import ast
 import pathlib
 
@@ -88,15 +88,17 @@ def test_unported_options_raise(kw):
 
 
 def test_loop_path_variants_raise():
-    """mesh= (multi-device, A17) and stereo bf (A16) on the loop path."""
+    """mesh= (multi-device, A17) raises on the loop path; stereo bf (A16
+    steps a-c) is taken, as a float32 scalar on the closer's device (its
+    parity: tests/test_torch_stereo.py::test_loop_closer_welding_ba_with_bf)."""
     with pytest.raises(NotImplementedError, match="A17"):
         LoopCloser(CAM, 8, 64, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A17"):
         MonocularSLAM(CAM, device="cpu", mesh=object())
     lc = LoopCloser(CAM, 8, 64, config=LoopConfig(), device="cpu")
-    assert lc.bf is None and lc.pose_graph_mode == "sim3"
-    with pytest.raises(NotImplementedError, match="A16"):
-        lc.bf = 400.0
+    assert lc.bf is None and lc._bf_arr() is None and lc.pose_graph_mode == "sim3"
+    lc.bf = 400.0
+    assert lc._bf_arr().dtype == torch.float32 and float(lc._bf_arr()) == 400.0
     slam = MonocularSLAM(CAM, device="cpu", map_capacity=(8, 16, 64))
     with pytest.raises(NotImplementedError, match="A17"):
         maintenance.global_ba(slam.state, slam.cam_params, mesh=object())
@@ -147,6 +149,13 @@ def test_inertial_system_entry_point():
     assert slam.bf is None
     with pytest.raises(NotImplementedError, match="A16"):
         slam.bf = 400.0
+
+
+def test_stereo_modules_are_covered():
+    """The stereo slice (A16 steps a-c) is port files this test scans."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("geometry/rectify.py", "slam/stereo.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
 
 
 def test_io_modules_are_covered():

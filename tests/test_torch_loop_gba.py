@@ -16,7 +16,7 @@ from rover_slam_tpu_torch.map import keyframe_database as tkdb, maintenance as t
 from rover_slam_tpu_torch.optim import ba as tba
 from rover_slam_tpu_torch.slam.system import MonocularSLAM
 
-from torch_parity import CAM, POINT, POSE, _np, synthetic_frames, to_jax_state
+from torch_parity import CAM, POINT, POSE, _np, jax_problem, synthetic_frames, to_jax_state
 
 
 def _t(*arrays):
@@ -58,7 +58,7 @@ def scene():
 def test_solve_ba_pcg(scene):
     st, _ = scene
     prob_t, _ = tmnt._build_global_problem(st, torch.from_numpy(CAM))
-    prob_j = jba.BAProblem(*(jnp.asarray(x.numpy()) for x in prob_t))
+    prob_j = jax_problem(jba.BAProblem, prob_t)
     rj = jba.solve_ba(prob_j, iters=2, cg_iters=25, solver="pcg", phases=2, kf_major=True,
                       lm_cap=2048)
     rt = tba.solve_ba(prob_t, iters=2, cg_iters=25, solver="pcg", phases=2, lm_cap=2048)

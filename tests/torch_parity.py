@@ -38,6 +38,13 @@ def torch_problem(cls, prob_j):
                   for f in cls._fields if getattr(prob_j, f, None) is not None})
 
 
+def jax_problem(cls, prob_t):
+    """The JAX package's NamedTuple `cls` with the fields of a port one
+    (fields left None, such as a mono problem's stereo ones, stay None)."""
+    return cls(**{f: jnp.asarray(x.numpy()) for f, x in prob_t._asdict().items()
+                  if x is not None})
+
+
 def to_jax_state(st: tms.MapState):
     base = jms.empty_map(K=st.K, N=st.N, L=st.L, D=st.lm_desc.shape[1])
     return base.replace(**{k: jnp.asarray(getattr(st, k).numpy()) for k in tms.FIELDS})
@@ -478,20 +485,30 @@ def check_inertial_pair(runs, pos_atol):
     assert ts.timers.summary()["vi_pose"]["count"] == js.timers.summary()["vi_pose"]["count"]
 
 
+class AppLog(list):
+    """recording_app's per-frame log; .slam is the system the app built."""
+    slam = None
+
+
 @contextlib.contextmanager
 def recording_app(app):
     """Patch an app module's build_system so that the system it builds logs
-    (tracking state, imu_ready) after each track_frame; yields the log."""
-    log = []
+    one entry per track_frame: (tracking state, imu_ready, keyframes, tracked
+    inliers, body position p_wb as a numpy array or None); yields the log."""
+    log = AppLog()
     orig = app.build_system
 
     def build(*a, **k):
         slam = orig(*a, **k)
+        log.slam = slam
         track = slam.track_frame
 
         def track_frame(*aa, **kk):
             info = track(*aa, **kk)
-            log.append((int(info["state"]), bool(getattr(slam, "imu_ready", False))))
+            p = getattr(slam, "p_wb", None)
+            log.append((int(info["state"]), bool(getattr(slam, "imu_ready", False)),
+                        int(slam.n_kf), int(info.get("n_inliers", -1)),
+                        None if p is None else np.asarray(_np(p), np.float64).copy()))
             return info
 
         slam.track_frame = track_frame
