@@ -83,6 +83,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                B2 launched. Then RGBDSLAM over the first I_RGBD_FRAMES frames
                with the renderer's true depth at the keypoints plus 1 cm of
                noise: the metric path length within 8 % of the truth.
+ 14. path J  — J1: the EuRoC app with --sensor stereo-inertial on path H's
+               scene written as a rectified stereo tree (cam1/ at
+               J_BASELINE) with path H's settings plus Stereo.T_c1_c2: a
+               StereoInertialSLAM, both eyes through SuperPoint as one
+               batch, LightGlue as the frame matcher, loop closing on. It
+               must return 0, track >= J_TRACKED_MIN of its frames,
+               initialize the IMU, launch B1 and B2 and keep the metric
+               ATE under J_ATE_BOUND_CM; it prints fps, frame times, the
+               init frame, the biases, the stereo matches a frame, the
+               landmarks spawned at stereo depth, both eyes' image reads
+               and the digest. J2, no networks: FisheyeStereoSLAM on
+               tests/test_fisheye_stereo.py's KB8 scene (metric ATE under
+               its 10 cm), then FisheyeStereoInertialSLAM on
+               tests/test_fisheye_inertial.py's IMU scene with a right eye
+               (the IMU initialized, metric ATE after the init under
+               J2_SI_ATE_BOUND_CM); both end in OK, and every stereo
+               frame's fisheye match launches B2 at 512 x 512 x 64.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -146,6 +163,19 @@ I_TRACKED_MIN = 0.9
 I_ATE_BOUND_CM = 13.0
 I_RGBD_FRAMES = 40
 I_RGBD_PATH_TOL = 0.08     # tests/test_map_extras.py's TestRGBD gate
+# Path J: the stereo-inertial EuRoC app on path H's scene as a rectified
+# stereo tree, then the fisheye tail.
+J_BASELINE = 0.11          # m, EuRoC's
+J_TRACKED_MIN = 0.9
+# Metric ATE bound of J1 (the app's: Horn without scale over every frame,
+# the 30 frames before the IMU init included): twice the larger CPU reading
+# of parity_fullwidth.py --app --sensor stereo-inertial --frames 120 (JAX
+# 44.61 cm, port 42.01 cm; both IMU inits at frame 30).
+J_ATE_BOUND_CM = 89.2
+# Metric ATE bound of J2's FisheyeStereoInertialSLAM (frames after the init):
+# twice the JAX package's CPU reading on the same scene
+# (parity_fullwidth.py --fisheye-stereo-inertial: JAX 19.02 cm, port 18.91 cm).
+J2_SI_ATE_BOUND_CM = 38.0
 
 
 def masked_attention_f32p(q, k, v, mask_kv):
@@ -1359,10 +1389,24 @@ def path_h_settings(extra: str = "", fx: float = 458.0) -> str:
             f"ORBextractor.nFeatures: {NK}\nloopClosing: 1\n{extra}\n")
 
 
-def write_path_h_tree(root: str, n_frames: int = H_FRAMES) -> dict:
+def path_j_settings(extra: str = "") -> str:
+    """Path J1's settings: path H's (loop closing on) with the rig's
+    Stereo.T_c1_c2, the right camera J_BASELINE along the left camera's x,
+    no rotation, as an opencv-style matrix. With no distortion coefficients
+    load_settings takes the rig as rectified and reads only the norm of the
+    translation."""
+    T = np.eye(4)
+    T[0, 3] = J_BASELINE
+    data = ", ".join(repr(float(x)) for x in T.reshape(-1))
+    return path_h_settings(f"Stereo.T_c1_c2:\n  rows: 4\n  cols: 4\n  dt: f\n"
+                           f"  data: [{data}]\n{extra}")
+
+
+def write_path_h_tree(root: str, n_frames: int = H_FRAMES, baseline: float = 0.0) -> dict:
     """Path G's scene (the ring photo world at 480x640, orbit_with_imu at
     1/30 s with its simulated IMU noise and biases) written as an EuRoC mav0/
-    tree with write_euroc_sequence; a reference-style settings file (PinHole,
+    tree with write_euroc_sequence (with baseline > 0 a rectified stereo
+    tree: cam1/ too); a reference-style settings file (PinHole,
     ORBextractor.nFeatures 1024, path G's IMU noise densities at 200 Hz,
     loopClosing 1, System.SaveAtlasToFile) and a second one that resumes
     from the saved atlas; the shipped synth weights as official-layout .pth
@@ -1378,7 +1422,7 @@ def write_path_h_tree(root: str, n_frames: int = H_FRAMES) -> dict:
         n_frames=n_frames, orbit_radius=5.0, revs=1.1 * n_frames / 160.0,
         dt=1.0 / 30.0, hz=IMU_HZ)
     mav0, gt = synthetic.write_euroc_sequence(os.path.join(root, "mav0"), world, R, t, times,
-                                              imu=imu)
+                                              baseline=baseline, imu=imu)
     out = {"mav0": mav0, "gt": gt, "atlas": os.path.join(root, "atlas.npz"),
            "settings": os.path.join(root, "settings.yaml"),
            "settings_resume": os.path.join(root, "settings_resume.yaml"),
@@ -1401,14 +1445,19 @@ def _frame_stats(log_path: str) -> dict:
     with open(log_path) as f:
         fl = json.load(f)
     fr = fl["frames"]
-    total = np.asarray([x["read_ms"] + x["extract_ms"] + x["track_ms"] for x in fr])
+    total = np.asarray([x["read_ms"] + x.get("read_r_ms", 0.0) + x["extract_ms"] + x["track_ms"]
+                        for x in fr])
+    right = {}
+    if "read_r_ms" in fr[0]:    # the stereo sensors' right eye
+        right = {"read_r_ms_median": float(np.median([x["read_r_ms"] for x in fr])),
+                 "read_r_ms_max": float(max(x["read_r_ms"] for x in fr))}
     ready = [i for i, x in enumerate(fr) if x["imu_ready"]]
     return {"frames": len(fr), "fps": len(fr) / fl["wall_s"],
             "frame_ms_median": float(np.median(total)),
             "frame_ms_p95": float(np.percentile(total, 95)),
             "frame_ms_max": float(total.max()),
             "read_ms_median": float(np.median([x["read_ms"] for x in fr])),
-            "read_ms_max": float(max(x["read_ms"] for x in fr)),
+            "read_ms_max": float(max(x["read_ms"] for x in fr)), **right,
             "extract_ms_median": float(np.median([x["extract_ms"] for x in fr])),
             "track_ms_median": float(np.median([x["track_ms"] for x in fr])),
             "frames_tracked": sum(x["state"] == T.OK for x in fr),
@@ -1539,6 +1588,271 @@ def phase_path_h(tmp_root: str):
     return res
 
 
+def write_path_j_tree(root: str, n_frames: int = H_FRAMES) -> dict:
+    """Path J1's tree: path H's scene and weights written as a rectified
+    stereo tree (cam1/ rendered J_BASELINE to the right), with path J's
+    settings. Returns the paths."""
+    tree = write_path_h_tree(root, n_frames, baseline=J_BASELINE)
+    with open(tree["settings"], "w") as f:
+        f.write(path_j_settings())
+    return tree
+
+
+def run_path_j1(tmp_root: str) -> dict:
+    """The stereo-inertial app on path J1's tree with both official-layout
+    checkpoints, --gt, --stats-out and --frame-log; the launches counted
+    from 0 over the run, the stereo points of each frame and the landmarks
+    spawned at stereo depth, read through the system the app builds."""
+    from rover_slam_tpu_torch.apps import run_euroc
+    from rover_slam_tpu_torch.slam import stereo as st
+    t_w = time.perf_counter()
+    tree = write_path_j_tree(tmp_root)
+    write_s = time.perf_counter() - t_w
+    out = {k: os.path.join(tmp_root, f"j1_{k}") for k in ("traj", "stats", "frames")}
+    built, n_stereo, spawned = [], [], []
+    build, spawn = run_euroc.build_system, st._spawn_stereo_landmarks_kernel
+
+    def building(*a, **k):
+        slam = build(*a, **k)
+        built.append(slam)
+        track = slam.track_stereo_frame
+
+        def track_stereo_frame(*aa, **kk):
+            info = track(*aa, **kk)
+            n_stereo.append((slam._stereo_depth > 0).sum())
+            return info
+
+        slam.track_stereo_frame = track_stereo_frame
+        return slam
+
+    def counting_spawn(state, *a):
+        new = spawn(state, *a)
+        spawned.append(new.n_lm - state.n_lm)
+        return new
+
+    run_euroc.build_system, st._spawn_stereo_landmarks_kernel = building, counting_spawn
+    _reset_launches()
+    try:
+        rc = run_euroc.main([tree["settings"], tree["mav0"], "--sensor", "stereo-inertial",
+                             "--out", out["traj"], "--gt", tree["gt"],
+                             "--stats-out", out["stats"], "--frame-log", out["frames"],
+                             "--superpoint-ckpt", tree["sp"], "--lightglue-ckpt", tree["lg"]])
+    finally:
+        run_euroc.build_system, st._spawn_stereo_landmarks_kernel = build, spawn
+    launches = _launches()
+    if rc != 0:
+        raise AssertionError(f"path J1: run_euroc returned {rc}")
+    slam, = built
+    with open(out["stats"]) as f:
+        stats = json.load(f)
+    res = {"tree_write_s": write_s, **_frame_stats(out["frames"]), **stats,
+           "bg": slam.bg.cpu().tolist(), "ba": slam.ba.cpu().tolist(),
+           "bg_true": BG_TRUE, "ba_true": BA_TRUE,
+           "stereo_matches_median": float(torch.stack(n_stereo).float().median()),
+           "landmarks_from_stereo": int(sum(int(x) for x in spawned)),
+           "vi_refines": slam.vi_refines, "vi_ba_runs": slam.vi_ba_runs,
+           "n_lm": int(slam.state.n_lm), "launches": launches,
+           "trajectory_digest": trajectory_digest(slam),
+           "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
+    log("# path J1:", json.dumps(res))
+    return res
+
+
+def fisheye_rig():
+    """tests/test_fisheye_stereo.py's TUM-VI-like rig: KB8 intrinsics at
+    512x512 and the left camera in the right one's frame, R_rl =
+    exp([0, 0.02, 0]), t_rl = [-0.101, 0.002, 0.001]."""
+    from rover_slam_tpu_torch.geometry import cameras, lie
+    kb8 = cameras.make_kb8(190.978, 190.973, 254.932, 256.897, 0.00348238, 0.000715034,
+                           -0.00205323, 0.000202936).numpy()
+    R_rl = lie.so3_exp(torch.tensor([0.0, 0.02, 0.0])).numpy()
+    return kb8, R_rl, np.asarray([-0.101, 0.002, 0.001], np.float32)
+
+
+def fisheye_world(seed: int):
+    """A 1600-landmark ring world (64-D) seen through the KB8 camera."""
+    from rover_slam_tpu_torch.geometry import cameras
+    from rover_slam_tpu_torch.utils import synthetic
+    kb8, _, _ = fisheye_rig()
+    base = synthetic.ring_world(n_landmarks=1600, desc_dim=64, seed=seed)
+    return synthetic.SyntheticWorld(landmarks=base.landmarks, desc=base.desc, cam_params=kb8,
+                                    cam_kind=cameras.KANNALA_BRANDT8, image_hw=(512, 512))
+
+
+def fisheye_stereo_frames(world, R_gt, t_gt, times, **kw):
+    """Both eyes' synthetic frames: the left at the trajectory, the right
+    through the rig (tests/test_fisheye_stereo.py::_right_pose)."""
+    from rover_slam_tpu_torch.utils import synthetic
+    _, R_rl, t_rl = fisheye_rig()
+    R_r = np.einsum("ij,kjl->kil", R_rl, np.asarray(R_gt)).astype(np.float32)
+    t_r = (np.einsum("ij,kj->ki", R_rl, np.asarray(t_gt)) + t_rl).astype(np.float32)
+    return (synthetic.render_sequence(world, R_gt, t_gt, times, **kw),
+            synthetic.render_sequence(world, R_r, t_r, times, **kw))
+
+
+def fisheye_stereo_scene(n_frames: int = 30):
+    """tests/test_fisheye_stereo.py's sequence: world seed 4,
+    forward_trajectory at 0.5 m/s over n_frames at dt 0.1, 512 keypoints.
+    Returns (left, right, (R_gt, t_gt, times), None)."""
+    from rover_slam_tpu_torch.utils import synthetic
+    R_gt, t_gt, times = synthetic.forward_trajectory(n_frames=n_frames, dt=0.1, speed=0.5,
+                                                     yaw_rate=0.03)
+    left, right = fisheye_stereo_frames(fisheye_world(4), R_gt, t_gt, times, n_kpts=512,
+                                        pix_noise=0.4, desc_noise=0.05)
+    return left, right, (R_gt, t_gt, times), None
+
+
+def fisheye_si_scene(n_frames: int = 50):
+    """tests/test_fisheye_inertial.py's sequence with a right eye: world
+    seed 2, orbit_with_imu over 50 frames at dt 0.1 (the first n_frames),
+    512 keypoints. Returns (left, right, (R_gt, t_gt, times), imu)."""
+    from rover_slam_tpu_torch.utils import synthetic
+    R_gt, t_gt, times, _, imu = synthetic.orbit_with_imu(n_frames=50, revs=0.5, dt=0.1)
+    R_gt, t_gt, times = R_gt[:n_frames], t_gt[:n_frames], times[:n_frames]
+    left, right = fisheye_stereo_frames(fisheye_world(2), R_gt, t_gt, times, n_kpts=512,
+                                        pix_noise=0.5, desc_noise=0.05)
+    return left, right, (R_gt, t_gt, times), imu
+
+
+# tests/test_fisheye_inertial.py's TUM-VI IMU noise at 200 Hz.
+FISHEYE_IMU = dict(sigma_g=0.00016 * math.sqrt(200.0), sigma_a=0.0028 * math.sqrt(200.0),
+                   walk_g=0.000022 / math.sqrt(200.0), walk_a=0.00086 / math.sqrt(200.0))
+
+
+def run_fisheye(scene, cls, calib=None, **kw):
+    """Every frame of a fisheye scene through a fresh system of class cls
+    (built as the tests build it, its IMU samples fed before each frame);
+    per frame its tracking state, stereo points, IMU readiness and the B2
+    reduces its fisheye stereo match launched. Returns (slam, per-frame
+    records, wall seconds)."""
+    from rover_slam_tpu_torch.geometry import cameras
+    from rover_slam_tpu_torch.ops import nn_matcher as nm
+    from rover_slam_tpu_torch.slam import stereo as st, tracking as T
+    left, right, _, imu = scene
+    kb8, R_rl, t_rl = fisheye_rig()
+    cfg = T.TrackerConfig(cam_kind=cameras.KANNALA_BRANDT8, image_hw=(512, 512))
+    args = (kb8,) + ((calib,) if calib is not None else ()) + ((R_rl, t_rl),)
+    slam = cls(*args, config=cfg, desc_dim=64, **kw)
+    match, match_reduces = st.fisheye_stereo_match_kernel, []
+
+    def counting_match(*a, **k):
+        before = nm.nn_launches
+        out = match(*a, **k)
+        match_reduces.append(nm.nn_launches - before)
+        return out
+
+    st.fisheye_stereo_match_kernel = counting_match
+    rec = []
+    try:
+        t0 = time.perf_counter()
+        for i, (fl, fr) in enumerate(zip(left, right)):
+            if i > 0 and imu is not None:
+                for a, g, t in zip(*imu[i - 1]):
+                    slam.feed_imu(a, g, t)
+            state = slam.track_stereo_frame(fl.kpts, fl.rays, fl.desc, fl.valid,
+                                            fr.rays, fr.desc, fr.valid, fl.time)["state"]
+            rec.append((int(state), slam._stereo_depth, bool(getattr(slam, "imu_ready", False))))
+        _sync(slam.device)
+        wall = time.perf_counter() - t0
+    finally:
+        st.fisheye_stereo_match_kernel = match
+    rec = [(s, int((d > 0).sum()), r, n) for (s, d, r), n in zip(rec, match_reduces)]
+    return slam, rec, wall
+
+
+def fisheye_ate_cm(slam, scene, after_frame=None) -> float:
+    """Metric ATE (Horn without scale) in cm over the frames after
+    after_frame (None: every frame)."""
+    from rover_slam_tpu_torch.utils import trajectory
+    R_gt, t_gt, times = scene[2]
+    est_t, est_R, est_tcw = slam.get_trajectory()
+    est = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
+    gt = np.stack([-np.asarray(R).T @ np.asarray(t) for R, t in zip(R_gt, t_gt)])
+    pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times)
+             if after_frame is None or j > after_frame]
+    return 100.0 * trajectory.ate_rmse(np.stack([est[i] for i, _ in pairs]),
+                                       np.stack([gt[j] for _, j in pairs]),
+                                       with_scale=False)[0]
+
+
+def run_path_j2(dev) -> dict:
+    """The fisheye tail, no networks: FisheyeStereoSLAM on
+    fisheye_stereo_scene, then FisheyeStereoInertialSLAM on
+    fisheye_si_scene; the launches counted from 0 over both."""
+    from rover_slam_tpu_torch.imu import preintegration as preint
+    from rover_slam_tpu_torch.slam import tracking as T
+    from rover_slam_tpu_torch.slam.stereo import FisheyeStereoSLAM
+    from rover_slam_tpu_torch.slam.stereo_inertial import FisheyeStereoInertialSLAM
+    _reset_launches()
+    out = {}
+    scene = fisheye_stereo_scene()
+    slam, rec, wall = run_fisheye(scene, FisheyeStereoSLAM, map_capacity=(64, 512, 16384),
+                                  device=dev)
+    out["stereo"] = {"frames": len(rec), "fps": len(rec) / wall,
+                     "final_state": int(slam.tracking_state), "n_kf": slam.n_kf,
+                     "ate_metric_cm": fisheye_ate_cm(slam, scene),
+                     "frames_tracked": sum(r[0] == T.OK for r in rec),
+                     "stereo_points_median": float(np.median([r[1] for r in rec])),
+                     "match_reduces_min": min(r[3] for r in rec)}
+    scene = fisheye_si_scene()
+    calib = preint.ImuCalib(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                            *(np.float32(FISHEYE_IMU[k])
+                              for k in ("sigma_g", "sigma_a", "walk_g", "walk_a")))
+    slam, rec, wall = run_fisheye(scene, FisheyeStereoInertialSLAM, calib,
+                                  map_capacity=(96, 512, 16384), device=dev)
+    ready = [i for i, r in enumerate(rec) if r[2]]
+    out["stereo_inertial"] = {
+        "frames": len(rec), "fps": len(rec) / wall, "final_state": int(slam.tracking_state),
+        "imu_ready": slam.imu_ready, "imu_ready_frame": ready[0] if ready else None,
+        "n_kf": slam.n_kf, "frames_tracked": sum(r[0] == T.OK for r in rec),
+        "ate_metric_cm": fisheye_ate_cm(slam, scene, ready[0]) if ready else float("nan"),
+        "bg": slam.bg.cpu().tolist(), "ba": slam.ba.cpu().tolist(),
+        "stereo_points_median": float(np.median([r[1] for r in rec])),
+        "match_reduces_min": min(r[3] for r in rec)}
+    out["launches"] = _launches()
+    log("# path J2:", json.dumps(out))
+    return out
+
+
+def phase_path_j(tmp_root: str):
+    """J1, the stereo-inertial app: returns 0, tracks >= J_TRACKED_MIN of
+    its frames, initializes the IMU, launches B1 and B2, and holds the
+    metric ATE (the app's: Horn without scale over every frame) under
+    J_ATE_BOUND_CM. J2, the fisheye tail: both systems end in OK, the
+    stereo run's metric ATE under tests/test_fisheye_stereo.py's 10 cm, the
+    stereo-inertial run initializes the IMU and holds its metric ATE after
+    the init under J2_SI_ATE_BOUND_CM, and every stereo frame's fisheye
+    match launched B2 (its two reduces)."""
+    from rover_slam_tpu_torch.slam import tracking as T
+    j1 = run_path_j1(tmp_root)
+    if not j1["imu_ready"] or j1["imu_ready_frame"] is None:
+        raise AssertionError("path J1: the IMU never initialized")
+    if not j1["frames_tracked"] >= J_TRACKED_MIN * j1["frames"]:
+        raise AssertionError(f"path J1 tracked only {j1['frames_tracked']} of "
+                             f"{j1['frames']} frames")
+    ate = j1["ate_cm"]
+    if not (ate is not None and math.isfinite(ate) and ate < J_ATE_BOUND_CM):
+        raise AssertionError(f"path J1: metric ATE {ate} cm, bound {J_ATE_BOUND_CM} cm")
+    if not (j1["launches"]["attention"] > 0 and j1["launches"]["nn"] > 0):
+        raise AssertionError(f"path J1: launches {j1['launches']}")
+    j2 = run_path_j2(torch.device("cuda", 0))
+    fs, fsi = j2["stereo"], j2["stereo_inertial"]
+    for name, r in (("stereo", fs), ("stereo-inertial", fsi)):
+        if r["final_state"] != T.OK:
+            raise AssertionError(f"path J2 {name}: final state {r['final_state']}")
+        if not r["match_reduces_min"] >= 2:
+            raise AssertionError(f"path J2 {name}: a fisheye match launched "
+                                 f"{r['match_reduces_min']} B2 reduces")
+    if not fs["ate_metric_cm"] < 10.0:
+        raise AssertionError(f"path J2 stereo: metric ATE {fs['ate_metric_cm']} cm")
+    if not (fsi["imu_ready"] and math.isfinite(fsi["ate_metric_cm"])
+            and fsi["ate_metric_cm"] < J2_SI_ATE_BOUND_CM):
+        raise AssertionError(f"path J2 stereo-inertial: imu_ready {fsi['imu_ready']}, "
+                             f"metric ATE {fsi['ate_metric_cm']} cm, "
+                             f"bound {J2_SI_ATE_BOUND_CM} cm")
+    return j1, j2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1573,6 +1887,8 @@ def main():
     scene_i = PathI(dev, n_frames=160)
     paths["I"], paths["I RGBD"] = phase_path_i(scene_i)
     del scene_i
+    with tempfile.TemporaryDirectory(prefix="path_j_") as tmp_root:
+        paths["J1"], paths["J2"] = phase_path_j(tmp_root)
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

@@ -3,8 +3,10 @@ full width, both on the CPU.
 
     python3 parity_fullwidth.py [--frames 80] [--pipeline K] [--loop] [--inertial]
                                 [--out rows.json]
-    python3 parity_fullwidth.py --app [--frames 120] [--tree DIR] [--out summary.json]
+    python3 parity_fullwidth.py --app [--sensor stereo-inertial] [--frames 120] [--tree DIR]
+                                [--out summary.json]
     python3 parity_fullwidth.py --stereo [--frames 160] [--out rows.json]
+    python3 parity_fullwidth.py --fisheye-stereo-inertial [--out summary.json]
 
 The scene is chip_smoke.py's path A: the ring photo world (1400 sprites),
 480x640 frames rendered once with numpy at the bench's per-frame motion
@@ -43,8 +45,10 @@ biases against the simulated ones, and the metric ATE (Horn without scale)
 beside the scale-aligned one, both over the frames after the init. A
 comparison script, not part of the port: it imports both packages. With
 --app both packages' EuRoC apps run on chip_smoke.py's path H tree instead
-(run_apps); with --stereo both packages' StereoSLAMs run on chip_smoke.py's
-path I scene (run_stereo).
+(run_apps; with --sensor stereo-inertial on path J1's stereo tree); with
+--stereo both packages' StereoSLAMs run on chip_smoke.py's path I scene
+(run_stereo); with --fisheye-stereo-inertial both packages'
+FisheyeStereoInertialSLAMs run on path J2's second scene (run_fisheye_si).
 """
 from __future__ import annotations
 
@@ -185,10 +189,13 @@ def run_apps(args):
     its settings file and the shipped weights as official-layout .pth
     files) through rover_slam_tpu.apps.run_euroc and then
     rover_slam_tpu_torch.apps.run_euroc --device cpu, monocular-inertial,
-    each package with its own RANSAC draws, as a user runs them. Prints
-    each app's --stats-out, per-frame tracking states, the frame at which
-    the IMU initialized, frames tracked, the frames where the states differ
-    and the largest distance between the two TUM trajectories' positions."""
+    each package with its own RANSAC draws, as a user runs them; with
+    --sensor stereo-inertial path J1's tree (the same scene as a rectified
+    stereo tree, its settings with Stereo.T_c1_c2) and sensor. Prints each
+    app's --stats-out, per-frame tracking states, the frame at which the
+    IMU initialized, frames tracked, the final biases, the frames where the
+    states differ and the largest distance between the two TUM
+    trajectories' positions."""
     import tempfile
     import chip_smoke
     from rover_slam_tpu.apps import run_euroc as japp
@@ -196,29 +203,33 @@ def run_apps(args):
     from rover_slam_tpu_torch.utils import trajectory
 
     root = args.tree or tempfile.mkdtemp(prefix="path_h_")
-    tree = chip_smoke.write_path_h_tree(root, args.frames)
+    stereo = "stereo" in args.sensor
+    write = chip_smoke.write_path_j_tree if stereo else chip_smoke.write_path_h_tree
+    tree = write(root, args.frames)
+    method = "track_stereo_frame" if stereo else "track_frame"
     res = {}
     for name, app, extra in (("jax", japp, []), ("torch", tapp, ["--device", "cpu"])):
-        rec = []
+        rec, built = [], []
         orig = app.build_system
 
         def recording(*a, orig=orig, rec=rec, **k):
             slam = orig(*a, **k)
-            track = slam.track_frame
+            built.append(slam)
+            track = getattr(slam, method)
 
             def track_frame(*aa, **kk):
                 info = track(*aa, **kk)
                 rec.append((int(info["state"]), bool(getattr(slam, "imu_ready", False))))
                 return info
 
-            slam.track_frame = track_frame
+            setattr(slam, method, track_frame)
             return slam
 
         app.build_system = recording
         paths = {k: os.path.join(root, f"{name}_{k}") for k in ("traj", "stats")}
         t0 = time.perf_counter()
         try:
-            rc = app.main([tree["settings"], tree["mav0"], "--sensor", "monocular-inertial",
+            rc = app.main([tree["settings"], tree["mav0"], "--sensor", args.sensor,
                            "--out", paths["traj"], "--gt", tree["gt"],
                            "--stats-out", paths["stats"], "--superpoint-ckpt", tree["sp"],
                            "--lightglue-ckpt", tree["lg"], *extra])
@@ -230,6 +241,8 @@ def run_apps(args):
         res[name] = {"rc": rc, "seconds": time.perf_counter() - t0, "stats": stats,
                      "imu_ready_frame": ready[0] if ready else None,
                      "frames_tracked": sum(st == 2 for st, _ in rec),
+                     "bg": np.asarray(built[0].bg).tolist(),
+                     "ba": np.asarray(built[0].ba).tolist(),
                      "states": [st for st, _ in rec]}
         print(f"# {name}:", json.dumps({k: v for k, v in res[name].items() if k != "states"}),
               flush=True)
@@ -237,7 +250,7 @@ def run_apps(args):
     _, pj, _ = trajectory.load_tum(os.path.join(root, "jax_traj"))
     _, pt, _ = trajectory.load_tum(os.path.join(root, "torch_traj"))
     n = min(len(pj), len(pt))
-    summary = {"frames": args.frames, "states_equal": sum(a == b for a, b in zip(sj, st)),
+    summary = {"frames": args.frames, "sensor": args.sensor, "states_equal": sum(a == b for a, b in zip(sj, st)),
                "states_differ_at": [i for i, (a, b) in enumerate(zip(sj, st)) if a != b],
                "traj_max_dist_m": float(np.linalg.norm(pj[:n] - pt[:n], axis=1).max()),
                "jax": {k: v for k, v in res["jax"].items() if k != "states"},
@@ -365,6 +378,74 @@ def run_stereo(args):
             json.dump({"rows": rows, "summary": summary}, f, indent=1)
 
 
+def run_fisheye_si(args):
+    """--fisheye-stereo-inertial: chip_smoke.py's path J2 second scene
+    (tests/test_fisheye_inertial.py's 50-frame orbit_with_imu scene with a
+    right eye through tests/test_fisheye_stereo.py's rig) through both
+    packages' FisheyeStereoInertialSLAMs (tinit_s 1.0, tables 96 / 512 /
+    16384), each fed the same frames and IMU samples. Prints each side's
+    per-frame states, the frame at which the IMU initialized, its final
+    biases and its metric ATE (Horn without scale) over the frames after
+    the init, which sets chip_smoke.py's J2_SI_ATE_BOUND_CM."""
+    import jax.numpy as jnp
+    import chip_smoke
+    from rover_slam_tpu.imu import preintegration as jpre
+    from rover_slam_tpu.slam import stereo_inertial as jsi, tracking as jT
+    from rover_slam_tpu_torch.geometry import cameras as tcam
+    from rover_slam_tpu_torch.imu import preintegration as tpre
+    from rover_slam_tpu_torch.slam import stereo_inertial as tsi, tracking as tT
+    from rover_slam_tpu_torch.utils import trajectory
+    left, right, (R_gt, t_gt, times), imu = chip_smoke.fisheye_si_scene()
+    kb8, R_rl, t_rl = chip_smoke.fisheye_rig()
+    noise = chip_smoke.FISHEYE_IMU
+    calibs = {"jax": jpre.ImuCalib(Rbc=jnp.eye(3), tbc=jnp.zeros(3),
+                                   **{k: jnp.float32(v) for k, v in noise.items()}),
+              "torch": tpre.ImuCalib(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                                     *(np.float32(noise[k]) for k in
+                                       ("sigma_g", "sigma_a", "walk_g", "walk_a")))}
+    gt = np.stack([-R.T @ t for R, t in zip(R_gt, t_gt)])
+    res = {}
+    for name, mod, T, kw in (("jax", jsi, jT, {}), ("torch", tsi, tT, dict(device="cpu"))):
+        t0 = time.perf_counter()
+        slam = mod.FisheyeStereoInertialSLAM(
+            kb8, calibs[name], (R_rl, t_rl),
+            config=T.TrackerConfig(cam_kind=tcam.KANNALA_BRANDT8, image_hw=(512, 512)),
+            map_capacity=(96, 512, 16384), desc_dim=64, **kw)
+        states, ready = [], None
+        for i, (fl, fr) in enumerate(zip(left, right)):
+            if i > 0:
+                for a, g, t in zip(*imu[i - 1]):
+                    slam.feed_imu(a, g, t)
+            states.append(int(slam.track_stereo_frame(fl.kpts, fl.rays, fl.desc, fl.valid,
+                                                      fr.rays, fr.desc, fr.valid,
+                                                      fl.time)["state"]))
+            if slam.imu_ready and ready is None:
+                ready = i
+        e_t, e_R, e_tcw = slam.get_trajectory()
+        pos = np.stack([-e_R[i].T @ e_tcw[i] for i in range(len(e_t))])
+        pairs = [(i, j) for i, j in trajectory.associate_by_time(e_t, times)
+                 if ready is not None and j > ready]
+        ate = 100.0 * trajectory.ate_rmse(np.stack([pos[i] for i, _ in pairs]),
+                                          np.stack([gt[j] for _, j in pairs]),
+                                          with_scale=False)[0]
+        res[name] = {"seconds": time.perf_counter() - t0, "states": states,
+                     "imu_ready_frame": ready, "n_kf": int(slam.n_kf),
+                     "bg": np.asarray(slam.bg).tolist(), "ba": np.asarray(slam.ba).tolist(),
+                     "ate_metric_after_init_cm": ate, "pos": pos}
+        print(f"# {name}:", json.dumps({k: v for k, v in res[name].items() if k != "pos"}),
+              flush=True)
+    summary = {"states_equal": res["jax"]["states"] == res["torch"]["states"],
+               "traj_max_dist_m": float(np.linalg.norm(res["jax"]["pos"] - res["torch"]["pos"],
+                                                       axis=1).max()),
+               **{f"{k}_ate_metric_after_init_cm": res[k]["ate_metric_after_init_cm"]
+                  for k in res}}
+    print("# summary:", json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"summary": summary, **{k: {kk: vv for kk, vv in v.items() if kk != "pos"}
+                                              for k, v in res.items()}}, f)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
@@ -377,6 +458,10 @@ def main():
                     help="both packages' run_euroc apps on chip_smoke.py's path H tree")
     ap.add_argument("--stereo", action="store_true",
                     help="both packages' StereoSLAMs on chip_smoke.py's path I scene")
+    ap.add_argument("--sensor", default="monocular-inertial",
+                    help="--app: monocular-inertial (path H) or stereo-inertial (path J1)")
+    ap.add_argument("--fisheye-stereo-inertial", action="store_true",
+                    help="both packages' FisheyeStereoInertialSLAMs on path J2's scene")
     ap.add_argument("--tree", default=None, help="--app: directory for the EuRoC tree")
     ap.add_argument("--out", default=None, help="also write rows and summary here (JSON)")
     args = ap.parse_args()
@@ -385,6 +470,8 @@ def main():
         return run_apps(args)
     if args.stereo:
         return run_stereo(args)
+    if args.fisheye_stereo_inertial:
+        return run_fisheye_si(args)
 
     import jax
     import jax.numpy as jnp

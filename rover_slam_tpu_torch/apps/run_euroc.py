@@ -1,11 +1,12 @@
 """CLI driver: run SLAM on an EuRoC-format sequence.
 
-Counterpart of rover_slam_tpu/apps/run_euroc.py (the reference's mono_euroc
-and mono_inertial_euroc mains, with no vocabulary argument).
+Counterpart of rover_slam_tpu/apps/run_euroc.py (the reference's mono_euroc,
+mono_inertial_euroc, stereo_euroc and stereo_inertial_euroc mains, with no
+vocabulary argument).
 
 Usage:
   python -m rover_slam_tpu_torch.apps.run_euroc SETTINGS.yaml MAV0_DIR \
-      [--sensor monocular|monocular-inertial] [--out traj.txt] \
+      [--sensor monocular|monocular-inertial|stereo|stereo-inertial] [--out traj.txt] \
       [--superpoint-ckpt superpoint_v1.pth] [--lightglue-ckpt superpoint_lightglue.pth] \
       [--max-frames N] [--gt gt.txt] [--stats-out stats.json] \
       [--frame-log frames.json] [--device cuda|cpu]
@@ -15,10 +16,16 @@ LightGlue with --lightglue-ckpt) run on the device; IMU samples are fed in
 time relative to the first frame; the trajectory is written in TUM format,
 the atlas saved when the settings name System.SaveAtlasToFile, and, given
 ground truth, scored with the Horn ATE protocol (metric with an IMU,
-scale-aligned without). --frame-log writes each frame's image-read, extract
-and track times (ms), its tracking state and whether the IMU was ready, and
-the inertial system's scale log (the init's scale, then refinements). The
-stereo sensors come with slice A16 and raise NotImplementedError.
+scale-aligned without, plain stereo included, as the JAX app scores it).
+The stereo sensors read the right eye from cam1/ (the app returns 1 without
+it) through a second prefetcher; both eyes go through one SuperPoint call as
+a batch of two, remapped first through the settings' rectification on a raw
+rig, and the frame goes to track_stereo_frame with the right eye's pixels
+(as the JAX app passes them, on a fisheye rig too: ROADMAP.md §C).
+--frame-log writes each frame's image-read (the wait on the prefetcher;
+read_r_ms for the right eye), extract and track times (ms), its tracking
+state and whether the IMU was ready, and the inertial system's scale log
+(the init's scale, then refinements).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..geometry import cameras
+from ..geometry import cameras, rectify
 from ..models.superpoint import SuperPointExtractor, load_torch_weights
 from ..utils import dataset, trajectory
 from ..utils.config import build_system, load_settings
@@ -76,7 +83,16 @@ def main(argv=None):
     seq = dataset.load_euroc_sequence(args.data_dir)
     paths = seq["image_paths"][: args.max_frames]
     t_cam = seq["t_cam"][: len(paths)]
+    stereo = "stereo" in args.sensor
+    if stereo:
+        paths_r = seq.get("right_image_paths", [])[: len(paths)]
+        if len(paths_r) != len(paths):
+            print("stereo sensor needs cam1/ in the sequence", file=sys.stderr)
+            return 1
     pf = dataset.ImagePrefetcher(paths, depth=8)
+    pf_r = dataset.ImagePrefetcher(paths_r, depth=8) if stereo else None
+    rr = getattr(slam, "rectification", None)
+    maps = None if rr is None else [torch.from_numpy(m).to(dev) for m in (rr.map1, rr.map2)]
     h, w = settings.image_hw
     ext = SuperPointExtractor(
         params=load_torch_weights(args.superpoint_ckpt) if args.superpoint_ckpt else None,
@@ -102,7 +118,18 @@ def main(argv=None):
             if img.shape != (h, w):
                 print(f"frame {i}: image {img.shape} != settings {(h, w)}", file=sys.stderr)
                 return 1
-            out = ext(torch.from_numpy(img[None]).to(dev))
+            t_r = t_b
+            if stereo:
+                img_r = pf_r.get(i).astype(np.float32) / 255.0
+                t_r = time.perf_counter()
+                pair = torch.from_numpy(np.stack([img, img_r])).to(dev)
+                if maps is not None:
+                    # Raw rig: both eyes through the rectification maps.
+                    pair = torch.stack([rectify.remap(pair[0], maps[0]),
+                                        rectify.remap(pair[1], maps[1])])
+                out = ext(pair)
+            else:
+                out = ext(torch.from_numpy(img[None]).to(dev))
             kpts = out["keypoints"][0]
             rays = cameras.unproject(settings.cam_kind, slam.cam_params, kpts)
             t_c = stamp()
@@ -113,10 +140,18 @@ def main(argv=None):
                     slam.feed_imu(seq["acc"][imu_idx], seq["gyro"][imu_idx],
                                   float(t_imu[imu_idx] - t_cam[0]))
                     imu_idx += 1
-            info = slam.track_frame(kpts, rays, out["descriptors"][0], out["valid"][0],
-                                    float(t_cam[i] - t_cam[0]))
+            t_rel = float(t_cam[i] - t_cam[0])
+            if stereo:
+                info = slam.track_stereo_frame(kpts, rays, out["descriptors"][0],
+                                               out["valid"][0], out["keypoints"][1],
+                                               out["descriptors"][1], out["valid"][1], t_rel)
+            else:
+                info = slam.track_frame(kpts, rays, out["descriptors"][0], out["valid"][0],
+                                        t_rel)
             t_d = stamp()
-            frames.append({"read_ms": (t_b - t_a) * 1e3, "extract_ms": (t_c - t_b) * 1e3,
+            frames.append({"read_ms": (t_b - t_a) * 1e3, **({"read_r_ms": (t_r - t_b) * 1e3}
+                                                             if stereo else {}),
+                           "extract_ms": (t_c - t_r) * 1e3,
                            "track_ms": (t_d - t_c) * 1e3, "state": int(info.get("state")),
                            "imu_ready": bool(getattr(slam, "imu_ready", False))})
             if i % 50 == 0:
@@ -124,6 +159,8 @@ def main(argv=None):
                       f"inliers={info.get('n_inliers')}", file=sys.stderr)
     finally:
         pf.close()
+        if pf_r is not None:
+            pf_r.close()
     _sync(dev)
     wall = time.perf_counter() - t0
 

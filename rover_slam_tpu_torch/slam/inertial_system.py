@@ -14,8 +14,9 @@ Keyframe inserts stay on the host (`_fused_mapping_ok` is False): with
 pipeline=K a frame's finish, its keyframe decision and insert included, runs
 K frames after its dispatch, as in the JAX package. The preintegration
 segment and the predicted velocity ride on the frame, so the finish-time
-refinement and the keyframe chain see the frame's own IMU window. Stereo
-inputs (`bf`) raise NotImplementedError naming their slice.
+refinement and the keyframe chain see the frame's own IMU window. With
+`bf` set (slam/stereo_inertial.py) the frame's and keyframes' stereo inverse
+depths add the third residual row to both inertial solvers.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from ..optim import inertial_init as ii
 from ..optim import pose_inertial as pio
 from ..optim import vi_ba as vi_ba_mod
 from . import tracking as T
-from .loop_closing import _later
 from .system import MonocularSLAM
 
 MAX_IMU_PER_FRAME = 64
@@ -170,15 +170,6 @@ class MonocularInertialSLAM(MonocularSLAM):
         self.vi_ba_runs = 0
         self.imu_init_time = None   # time of the frame that saw the init
         self.scale_log = []         # ("init" or "refine", scale) of each alignment
-
-    @property
-    def bf(self):
-        return None
-
-    @bf.setter
-    def bf(self, value):
-        if value is not None:
-            raise _later("Stereo inputs to the inertial system (bf)", "stereo (A16)")
 
     # ------------------------------------------------------------------
     def feed_imu(self, acc, gyro, t):
@@ -329,7 +320,8 @@ class MonocularInertialSLAM(MonocularSLAM):
             imu_bg0=seg.bg, imu_ba0=seg.ba, imu_info=preint.information_9(seg),
             walk_info=1.0 / torch.clamp(walk_var, min=1e-12),
             Xw=Xw, uv=frame.kpts, e_valid=e_valid, e_info=torch.ones((st.N,), device=dev),
-            R_cb=R_cb, t_cb=t_cb, cam_params=self.cam_params)
+            R_cb=R_cb, t_cb=t_cb, cam_params=self.cam_params,
+            invd=frame.invd if self.bf is not None else None, bf=self._bf_arr())
         with self.timers.stage("vi_pose"):
             res = pio.solve_pose_inertial(prob, cam_kind=self.cfg.cam_kind,
                                           anchor_fixed=anchor_fixed)
@@ -503,7 +495,9 @@ class MonocularInertialSLAM(MonocularSLAM):
             walk_info=self._walk_info * self.vi_ba_walk_scale,
             lm_pos=st.lm_pos, lm_opt_mask=lm_opt, e_kf=e_kf.to(torch.int32),
             e_lm=e_lm.to(torch.int32), e_uv=st.kf_kpts[jidx].reshape(-1, 2), e_valid=e_valid,
-            e_info=torch.full((Wp * N,), self.vi_ba_reproj_info, device=dev))
+            e_info=torch.full((Wp * N,), self.vi_ba_reproj_info, device=dev),
+            e_invd=None if self.bf is None else st.kf_kpt_invd[jidx].reshape(-1),
+            bf=self._bf_arr())
         R, p, v, bg, ba, X, _ = vi_ba_mod.solve_vi_ba(prob, cam_kind=self.cfg.cam_kind,
                                                       iters=iters)
         self.vi_ba_runs += 1

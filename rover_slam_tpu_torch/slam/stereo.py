@@ -1,22 +1,27 @@
-"""Stereo and RGB-D SLAM: left/right matching on rectified pairs, landmarks
-at measured depth, metric from the first frame.
+"""Stereo and RGB-D SLAM: left/right matching, landmarks at measured depth,
+metric from the first frame.
 
-Counterpart of rover_slam_tpu/slam/stereo.py without its fisheye parts (the
-reference's Frame::ComputeStereoMatches, Tracking::StereoInitialization and
-the stereo landmark spawning of CreateNewKeyFrame). Matching is one masked
-descriptor-distance matrix: a mutual nearest neighbour restricted to the
-scanline with positive disparity under max_disp. It stays plain torch: the
-NN kernel (B2) has no mask, and the [N, N] bf16 distance product is the one
-the JAX package computes outside any Pallas kernel (`association.desc_dist2`).
-Every keypoint's stereo inverse depth rides with the frame into every
-solver's third residual row (bf = baseline*fx).
+Counterpart of rover_slam_tpu/slam/stereo.py (the reference's
+Frame::ComputeStereoMatches and ComputeStereoFishEyeMatches,
+Tracking::StereoInitialization and the stereo landmark spawning of
+CreateNewKeyFrame). Rectified matching is one masked descriptor-distance
+matrix: a mutual nearest neighbour restricted to the scanline with positive
+disparity under max_disp. It stays plain torch: the NN kernel (B2) has no
+mask, and the [N, N] bf16 distance product is the one the JAX package
+computes outside any Pallas kernel (`association.desc_dist2`). Fisheye
+(unrectified) matching is the package's mutual NN with the ratio test (B2 on
+the card), an epipolar gate in bearing space and a two-view triangulation
+against the rig's extrinsic. Every keypoint's stereo inverse depth rides
+with the frame into every solver's third residual row (bf = baseline*fx).
+`StereoFrontEnd` holds what stereo adds to a monocular system, so that
+slam/stereo_inertial.py puts it on the inertial one.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..geometry import lie
+from ..geometry import lie, triangulation
 from ..map import map_state as ms
 from ..ops import association as assoc
 from . import tracking as T
@@ -47,6 +52,25 @@ def stereo_match_kernel(kpts_l, desc_l, valid_l, kpts_r, desc_r, valid_r, baseli
             torch.where(mutual, disp_sel, -1.0))
 
 
+def fisheye_stereo_match_kernel(rays_l, desc_l, valid_l, rays_r, desc_r, valid_r, R_rl, t_rl,
+                                th_desc2: float = assoc.TH_LOW ** 2, epi_th: float = 0.01):
+    """General (fisheye) stereo: mutual NN with the ratio test, the epipolar
+    gate in bearing space, and a two-view triangulation with the left camera
+    at the origin and the right at (R_rl, t_rl) (x_r = R_rl x_l + t_rl).
+    Returns (match_r [N] int32, Xl [N, 3] in the left camera, valid [N])."""
+    matches, _ = assoc.mutual_nn_match(desc_l, valid_l, desc_r, valid_r, th_desc2=th_desc2,
+                                       ratio=0.8)
+    R_lr = R_rl.transpose(-1, -2)
+    t_lr = -R_lr @ t_rl
+    matches = assoc.epipolar_gate(rays_l, rays_r, matches, R_lr, t_lr, th=epi_th)
+    m = matches.long().clamp(0, rays_r.shape[0] - 1)
+    dev = rays_l.device
+    Xl, tri_ok = triangulation.triangulate_and_check(
+        rays_l, rays_r[m], torch.eye(3, device=dev), torch.zeros(3, device=dev), R_rl, t_rl,
+        min_parallax_cos=1.0)
+    return matches, Xl, (matches >= 0) & tri_ok & (Xl[:, 2] > 0.05)
+
+
 def _spawn_stereo_landmarks_kernel(state: ms.MapState, kf_id, depth, max_depth):
     """Landmarks at stereo depth for the keyframe's keypoints that have none
     (depth in (0, max_depth); max_depth a float or a 0-dim tensor)."""
@@ -67,13 +91,12 @@ def _spawn_stereo_landmarks_kernel(state: ms.MapState, kf_id, depth, max_depth):
         0, k.reshape(1), li[None]))
 
 
-class StereoSLAM(MonocularSLAM):
-    """Rectified stereo SLAM, metric from the first frame:
-    track_stereo_frame() takes both eyes' extractions; the stereo depth
+class StereoFrontEnd:
+    """What rectified stereo adds to a monocular system (mixed in before
+    it): track_stereo_frame() takes both eyes' extractions; the stereo depth
     initializes the map and seeds landmarks at every keyframe."""
 
-    def __init__(self, cam_params, baseline: float, **kw):
-        super().__init__(cam_params, **kw)
+    def _init_stereo(self, cam_params, baseline: float):
         self.baseline = float(baseline)
         self.baseline_fx = self.baseline * float(np.asarray(cam_params)[0])
         self.bf = self.baseline_fx
@@ -98,10 +121,11 @@ class StereoSLAM(MonocularSLAM):
             return {"state": self.tracking_state, "init": ok}
         return self.track_frame(kpts_l, rays_l, desc_l, valid_l, time)
 
-    def _stereo_init(self, kpts, rays, desc, valid, depth, time) -> bool:
+    def _stereo_init(self, kpts, rays, desc, valid, depth, time, lm_kf: int = 0) -> bool:
         """(reference StereoInitialization) The first frame with >= 100
         stereo points becomes a keyframe at the origin, with its landmarks
-        at the measured depth."""
+        at the measured depth; lm_kf is the keyframe the landmarks name as
+        their first."""
         dev = self.device
         kpts, rays, desc = (torch.as_tensor(x, device=dev).float() for x in (kpts, rays, desc))
         valid = torch.as_tensor(valid, device=dev).bool()
@@ -115,7 +139,7 @@ class StereoSLAM(MonocularSLAM):
         state, slots = ms.add_landmarks(
             self.state, X, desc,
             X / torch.clamp(torch.linalg.norm(X, dim=-1, keepdim=True), min=1e-9),
-            torch.zeros((self.state.N,), dtype=torch.int32, device=dev), has_depth)
+            torch.full((self.state.N,), lm_kf, dtype=torch.int32, device=dev), has_depth)
         lm_idx = torch.where(slots >= 0, slots, -1)
         invd = torch.where(depth > 0, 1.0 / torch.clamp(depth, min=1e-6), -1.0)
         eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
@@ -139,7 +163,7 @@ class StereoSLAM(MonocularSLAM):
         return False
 
     def _insert_keyframe(self, frame):
-        """The monocular insert, then landmarks at stereo depth for the new
+        """The system's insert, then landmarks at stereo depth for the new
         keyframe's unmatched keypoints (far-point gate: 40 baselines, the
         reference's Stereo.ThDepth)."""
         super()._insert_keyframe(frame)
@@ -148,6 +172,14 @@ class StereoSLAM(MonocularSLAM):
             return
         self.state = _spawn_stereo_landmarks_kernel(self.state, self.n_kf - 1, depth,
                                                     40.0 * self.baseline)
+
+
+class StereoSLAM(StereoFrontEnd, MonocularSLAM):
+    """Rectified stereo SLAM, metric from the first frame."""
+
+    def __init__(self, cam_params, baseline: float, **kw):
+        super().__init__(cam_params, **kw)
+        self._init_stereo(cam_params, baseline)
 
 
 class RGBDSLAM(StereoSLAM):
@@ -168,3 +200,52 @@ class RGBDSLAM(StereoSLAM):
             ok = self._stereo_init(kpts, rays, desc, valid, self._stereo_depth, time)
             return {"state": self.tracking_state, "init": ok}
         return self.track_frame(kpts, rays, desc, valid, time)
+
+
+class FisheyeStereoMixin:
+    """Fisheye (unrectified) stereo front end: fisheye_stereo_match_kernel
+    against the rig's known extrinsic (reference
+    Frame::ComputeStereoFishEyeMatches). Works for any camera model whose
+    keypoints come with unit rays (KannalaBrandt8 for TUM-VI)."""
+
+    def _init_fisheye(self, T_rl):
+        """T_rl: 4x4 (or (R, t)) pose of the LEFT camera in the RIGHT camera
+        frame (x_r = R_rl x_l + t_rl), the inverse of the YAML's
+        Stereo.T_c1_c2."""
+        R_rl, t_rl = _split_pose(T_rl)
+        self.R_rl = torch.as_tensor(np.asarray(R_rl, np.float32), device=self.device)
+        self.t_rl = torch.as_tensor(np.asarray(t_rl, np.float32), device=self.device)
+
+    def track_stereo_frame(self, kpts_l, rays_l, desc_l, valid_l, rays_r, desc_r, valid_r,
+                           time) -> dict:
+        """Takes the RIGHT eye's unit RAYS, not its pixels: the match runs in
+        bearing space."""
+        dev = self.device
+        _, Xl, ok = fisheye_stereo_match_kernel(
+            *(torch.as_tensor(x, device=dev) for x in (rays_l, desc_l, valid_l,
+                                                       rays_r, desc_r, valid_r)),
+            self.R_rl, self.t_rl)
+        depth = torch.where(ok, Xl[:, 2], -1.0)
+        return self._after_stereo_depth(kpts_l, rays_l, desc_l, valid_l, depth, time)
+
+
+def _split_pose(T_rl):
+    """(R [3, 3], t [3]) of a 4x4 pose or of an (R, t) pair."""
+    if isinstance(T_rl, tuple):
+        return T_rl
+    m = np.asarray(T_rl, np.float64).reshape(4, 4)
+    return m[:3, :3], m[:3, 3]
+
+
+def fisheye_baseline(T_rl) -> float:
+    """The rig's baseline: the norm of the extrinsic's translation."""
+    return float(np.linalg.norm(np.asarray(_split_pose(T_rl)[1], np.float64)))
+
+
+class FisheyeStereoSLAM(FisheyeStereoMixin, StereoSLAM):
+    """Stereo SLAM for fisheye or unrectified rigs (reference: KB8 stereo
+    with Stereo.T_c1_c2 instead of rectification maps)."""
+
+    def __init__(self, cam_params, T_rl, **kw):
+        super().__init__(cam_params, baseline=fisheye_baseline(T_rl), **kw)
+        self._init_fisheye(T_rl)

@@ -4,8 +4,10 @@ Counterpart of rover_slam_tpu/utils/config.py: `Settings`, `SettingsError`,
 `load_settings`, `build_system` and `resume_atlas`. The same keys
 (Camera.type, Camera1.fx..., IMU.*, ORBextractor.nFeatures, System.*,
 loopClosing) map onto the port's TrackerConfig, camera parameters and
-ImuCalib. The monocular and monocular-inertial sensors are ported; stereo,
-stereo-inertial and RGBD raise NotImplementedError naming slice A16.
+ImuCalib, for every sensor the JAX package serves: monocular, stereo and
+RGB-D, with or without the IMU for the first two. A raw (distorted) pinhole
+stereo rig gets its rectification maps (geometry/rectify.py), and the system
+runs in the rectified frame.
 
 The file is read with PyYAML's safe loader once the cv::FileStorage
 `%YAML:1.0` header is stripped, as the JAX package reads it; a file it cannot
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 import yaml
 
-from ..geometry import cameras
+from ..geometry import cameras, rectify
 from ..imu import preintegration as preint
 from ..map import atlas
 from ..map import keyframe_database as kdb
@@ -40,7 +42,7 @@ class Settings:
     cam_params: np.ndarray          # [8]
     image_hw: tuple
     fps: float
-    sensor: str                     # monocular | monocular-inertial (stereo: A16)
+    sensor: str                     # monocular | stereo | rgbd (+ -inertial)
     baseline: Optional[float] = None
     stereo_th_depth: float = 40.0
     imu: Optional[preint.ImuCalib] = None
@@ -50,14 +52,12 @@ class Settings:
     load_atlas: Optional[str] = None
     save_atlas: Optional[str] = None
     loop_closing: bool = True
+    # The rectification (geometry/rectify.StereoRectification) of a raw
+    # pinhole stereo rig: the app remaps both eyes through it before the
+    # extractor, and build_system runs the system on its K_new and bf
+    # (reference Settings, src/Settings.cc:560-575; System::TrackStereo).
     rectification: Optional[object] = None
     raw: dict = field(default_factory=dict)
-
-
-def _stereo_later(sensor: str):
-    return NotImplementedError(
-        f"the {sensor} sensor is not ported yet: it comes with the stereo (A16) "
-        "slice of the PyTorch port (see ROADMAP.md)")
 
 
 def _get(d: dict, key: str, required: bool = False, default=None):
@@ -91,8 +91,6 @@ def _matrix4(m) -> np.ndarray:
 
 def load_settings(path_or_dict, sensor: str = "monocular") -> Settings:
     """Parse a reference-style YAML settings file (or a pre-parsed dict)."""
-    if "stereo" in sensor or sensor == "rgbd":
-        raise _stereo_later(sensor)
     if isinstance(path_or_dict, dict):
         d = path_or_dict
     else:
@@ -141,6 +139,10 @@ def load_settings(path_or_dict, sensor: str = "monocular") -> Settings:
         params[3] *= sy
         w, h = int(nw), int(nh)
 
+    baseline, rectification = None, None
+    if "stereo" in sensor:
+        baseline, rectification = _stereo_rig(d, kind, (fx, fy, cx, cy), (h, w))
+
     imu = None
     freq = float(_get(d, "IMU.Frequency", default=200.0))
     if "inertial" in sensor:
@@ -162,7 +164,7 @@ def load_settings(path_or_dict, sensor: str = "monocular") -> Settings:
 
     return Settings(
         cam_kind=kind, cam_params=params, image_hw=(h, w),
-        fps=float(_get(d, "Camera.fps", default=30.0)), sensor=sensor,
+        fps=float(_get(d, "Camera.fps", default=30.0)), sensor=sensor, baseline=baseline,
         stereo_th_depth=float(_get(d, "Stereo.ThDepth", default=40.0)),
         imu=imu, imu_freq=freq,
         n_features=int(_get(d, "ORBextractor.nFeatures", default=1024)),
@@ -170,7 +172,51 @@ def load_settings(path_or_dict, sensor: str = "monocular") -> Settings:
         load_atlas=_get(d, "System.LoadAtlasFromFile"),
         save_atlas=_get(d, "System.SaveAtlasToFile"),
         loop_closing=bool(_get(d, "loopClosing", default=1)),
-        raw=d)
+        rectification=rectification, raw=d)
+
+
+def _stereo_rig(d: dict, kind: int, k1, image_hw):
+    """(baseline, rectification or None) of a stereo rig: the baseline from
+    Camera.bf / fx, else from |Stereo.T_c1_c2[:3, 3]|. The rig is raw, and
+    gets the rectification maps, when the camera is pinhole, Stereo.T_c1_c2
+    is given and a Camera1.* or Camera2.* distortion coefficient is non-zero
+    (reference src/Settings.cc:560-575); T_c1_c2 is the right camera in the
+    left one's frame, so x_2 = R_21 x_1 + t_21 with (R_21, t_21) its inverse."""
+    fx, fy, cx, cy = k1
+    baseline, rectification = None, None
+    bf = _get(d, "Camera.bf")
+    if bf is not None:
+        baseline = float(bf) / float(fx)
+    tlr = _get(d, "Stereo.T_c1_c2")
+    if tlr is not None:
+        m = _matrix4(tlr)
+        if baseline is None:
+            baseline = float(np.linalg.norm(m[:3, 3]))
+        d1 = [_get_any(d, [f"Camera1.{k}", f"Camera.{k}"], default=0.0)
+              for k in ("k1", "k2", "p1", "p2")]
+        d2 = [_get(d, f"Camera2.{k}", default=0.0) for k in ("k1", "k2", "p1", "p2")]
+        if kind == cameras.PINHOLE and any(abs(v) > 0 for v in d1 + d2):
+            k2 = [_get(d, f"Camera2.{k}", default=v)
+                  for k, v in zip(("fx", "fy", "cx", "cy"), k1)]
+            R_12, t_12 = m[:3, :3], m[:3, 3]
+            rectification = rectify.stereo_rectify_maps(
+                np.array(k1, np.float64), np.asarray(d1), np.array(k2, np.float64),
+                np.asarray(d2), R_12.T, -R_12.T @ t_12, image_hw)
+    if baseline is None:
+        raise SettingsError("stereo sensor needs Camera.bf or Stereo.T_c1_c2")
+    return baseline, rectification
+
+
+def _stereo_trl(settings: Settings):
+    """The left camera's pose in the right camera's frame (R_rl, t_rl),
+    float32, from Stereo.T_c1_c2 (the right camera in the left one's frame)."""
+    tlr = _get(settings.raw, "Stereo.T_c1_c2")
+    if tlr is None:
+        raise SettingsError("fisheye stereo needs Stereo.T_c1_c2")
+    m = _matrix4(tlr)
+    R_rl = m[:3, :3].T
+    t_rl = -R_rl @ m[:3, 3]
+    return R_rl.astype(np.float32), t_rl.astype(np.float32)
 
 
 def build_system(settings: Settings, **kw):
@@ -180,15 +226,17 @@ def build_system(settings: Settings, **kw):
     K / L from System.MapKeyFrames / System.MapLandmarks, the tracker's and
     the loop closer's inlier gates scaled from the reference's 1024-feature
     constants, loopClosing honoured, and System.LoadAtlasFromFile resumed.
-    kwargs override (device among them)."""
+    A KB8 stereo rig gets the fisheye classes, a raw pinhole rig runs on the
+    rectified K_new and bf (slam.rectification set), stereo and RGB-D lock
+    the loop closer's Sim3 scale. kwargs override (device among them)."""
+    from ..slam import stereo, stereo_inertial
     from ..slam.inertial_system import MonocularInertialSLAM
     from ..slam.system import MonocularSLAM
     from ..slam.tracking import TrackerConfig
 
-    if settings.sensor not in ("monocular", "monocular-inertial"):
-        if "stereo" in settings.sensor or settings.sensor == "rgbd":
-            raise _stereo_later(settings.sensor)
-        raise SettingsError(f"unsupported sensor {settings.sensor}")
+    sensor = settings.sensor
+    if sensor not in ("monocular", "monocular-inertial", "stereo", "stereo-inertial", "rgbd"):
+        raise SettingsError(f"unsupported sensor {sensor}")
     n_feat = int(settings.n_features)
     raw = settings.raw
     cfg = kw.pop("config", None)
@@ -211,15 +259,40 @@ def build_system(settings: Settings, **kw):
         from ..slam.loop_closing import LoopConfig
         kw["loop_config"] = LoopConfig(
             cam_kind=settings.cam_kind,
-            fix_scale="inertial" in settings.sensor,
+            fix_scale="inertial" in sensor or sensor in ("stereo", "rgbd"),
             min_covis_weight=max(20, min(100, n_feat * 100 // 1024)),
             min_proj_verify=max(25, min(200, n_feat * 200 // 1024)),
             min_bow_matches=max(15, min(20, n_feat * 20 // 1024)),
             min_sim3_inliers=max(15, min(20, n_feat * 20 // 1024)))
-    if settings.sensor == "monocular":
-        slam = MonocularSLAM(settings.cam_params, config=cfg, **kw)
+    cam, imu = settings.cam_params, settings.imu
+    inertial = "inertial" in sensor
+    rr = settings.rectification
+    if sensor == "monocular":
+        slam = MonocularSLAM(cam, config=cfg, **kw)
+    elif sensor == "monocular-inertial":
+        slam = MonocularInertialSLAM(cam, imu, config=cfg, **kw)
+    elif sensor == "rgbd":
+        slam = stereo.RGBDSLAM(cam, depth_factor=float(_get(raw, "RGBD.DepthMapFactor",
+                                                            default=1.0)), config=cfg, **kw)
+    elif settings.cam_kind == cameras.KANNALA_BRANDT8:
+        # Fisheye rigs are not rectified: the general-extrinsic stereo.
+        if inertial:
+            slam = stereo_inertial.FisheyeStereoInertialSLAM(cam, imu, _stereo_trl(settings),
+                                                             config=cfg, **kw)
+        else:
+            slam = stereo.FisheyeStereoSLAM(cam, _stereo_trl(settings), config=cfg, **kw)
     else:
-        slam = MonocularInertialSLAM(settings.cam_params, settings.imu, config=cfg, **kw)
+        # A raw rig runs in the rectified frame (K_new, bf); the app remaps
+        # the images through settings.rectification before the extractor.
+        if rr is not None:
+            cam = cameras.make_pinhole(*rr.K_new)
+        baseline = float(rr.bf_px / rr.K_new[0]) if rr is not None else settings.baseline
+        if inertial:
+            slam = stereo_inertial.StereoInertialSLAM(cam, imu, baseline, config=cfg, **kw)
+        else:
+            slam = stereo.StereoSLAM(cam, baseline, config=cfg, **kw)
+        if rr is not None:
+            slam.rectification = rr
     if settings.load_atlas:
         resume_atlas(slam, atlas.load_atlas(settings.load_atlas, device=slam.device))
     return slam

@@ -60,7 +60,13 @@ def _load_lib():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        lib = ctypes.CDLL(build_native())
+        try:
+            lib = ctypes.CDLL(build_native())
+        except OSError:
+            # A build made on another host (linked to a libpng this one
+            # lacks) sits under the same name: build again here.
+            os.remove(_lib_path())
+            lib = ctypes.CDLL(build_native())
     except (OSError, RuntimeError) as e:
         _lib_failed = True
         warnings.warn(f"native dataset loader unavailable ({str(e).splitlines()[0]}); "

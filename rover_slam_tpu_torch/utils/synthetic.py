@@ -336,27 +336,35 @@ def write_euroc_sequence(root, world: PhotoWorld, R_cw, t_cw, times,
                          baseline: float = 0.0, imu=None,
                          t0_ns: int = 1403636579763555584, **render_kw):
     """Render a photometric sequence into an EuRoC mav0/ layout: cam0/data/
-    <ns>.pgm and cam0/data.csv, imu0/data.csv (imu: per-frame-gap (acc [n,3],
-    gyro [n,3], t [n]) tuples as orbit_with_imu gives them), and gt.txt, the
-    camera centres in TUM format. The same files as the JAX package's writer.
-    A stereo pair (baseline > 0) comes with slice A16. Returns (root,
+    <ns>.pgm and cam0/data.csv (with baseline > 0 also cam1/, the right eye
+    of render_photo_stereo's rectified pair, one CSV per eye), imu0/data.csv
+    (imu: per-frame-gap (acc [n,3], gyro [n,3], t [n]) tuples as
+    orbit_with_imu gives them), and gt.txt, the camera centres in TUM
+    format. The same files as the JAX package's writer. Returns (root,
     gt_path)."""
     import os
-    if baseline > 0:
-        raise NotImplementedError("a stereo EuRoC tree (baseline > 0) is not ported yet: "
-                                  "it comes with the stereo (A16) slice of the PyTorch "
-                                  "port (see ROADMAP.md)")
     root = str(root)
-    os.makedirs(os.path.join(root, "cam0", "data"), exist_ok=True)
+    cams = ["cam0"] + (["cam1"] if baseline > 0 else [])
+    csvs = {}
+    for cam in cams:
+        os.makedirs(os.path.join(root, cam, "data"), exist_ok=True)
+        csvs[cam] = open(os.path.join(root, cam, "data.csv"), "w")
+        csvs[cam].write("#timestamp [ns],filename\n")
     h, w = world.image_hw
-    with open(os.path.join(root, "cam0", "data.csv"), "w") as csv:
-        csv.write("#timestamp [ns],filename\n")
+    try:
         for i in range(len(times)):
             ts = t0_ns + int(round(float(times[i] - times[0]) * 1e9))
-            img = render_photo_frame(world, R_cw[i], t_cw[i], **render_kw)
-            csv.write(f"{ts},{ts}.pgm\n")
-            with open(os.path.join(root, "cam0", "data", f"{ts}.pgm"), "wb") as g:
-                g.write(b"P5\n%d %d\n255\n" % (w, h) + img.tobytes())
+            if baseline > 0:
+                imgs = render_photo_stereo(world, R_cw[i], t_cw[i], baseline, **render_kw)
+            else:
+                imgs = [render_photo_frame(world, R_cw[i], t_cw[i], **render_kw)]
+            for cam, img in zip(cams, imgs):
+                csvs[cam].write(f"{ts},{ts}.pgm\n")
+                with open(os.path.join(root, cam, "data", f"{ts}.pgm"), "wb") as g:
+                    g.write(b"P5\n%d %d\n255\n" % (w, h) + img.tobytes())
+    finally:
+        for f in csvs.values():
+            f.close()
     if imu is not None:
         os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
         with open(os.path.join(root, "imu0", "data.csv"), "w") as f:

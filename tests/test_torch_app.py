@@ -28,8 +28,9 @@ tracking states on every frame, the init at the same frame, equal
 within 2, equal TUM timestamps, quaternions within 0.07, and each app's
 metric ATE against the truth under 60 cm (the largest reading, 53.12 cm,
 plus an eighth). Then the edges: an image whose size differs from the
-settings returns 1 in both apps, a stereo run raises naming A16, and an
-atlas saved through System.SaveAtlasToFile is resumed through
+settings returns 1 in both apps, a stereo run on this tree's monocular
+settings (no baseline) raises SettingsError in both (stereo trees:
+tests/test_torch_app_stereo.py), and an atlas saved through System.SaveAtlasToFile is resumed through
 System.LoadAtlasFromFile. The file takes 2-5 min alone: the JAX
 MonocularInertialSLAM, SuperPoint and LightGlue compile for much of it, and
 the port runs 50 frames at one torch thread under `-n 6` on 8 cores."""
@@ -41,6 +42,7 @@ import pytest
 import torch
 
 from rover_slam_tpu.apps import run_euroc as japp
+from rover_slam_tpu.utils import config as jcfg
 from rover_slam_tpu_torch.apps import run_euroc as tapp
 from rover_slam_tpu_torch.models import weights as W
 from rover_slam_tpu_torch.utils import config as tcfg, synthetic, trajectory
@@ -132,9 +134,14 @@ def test_image_size_mismatch_returns_1(tree, tmp_path):
 
 
 def test_stereo_sensor_raises(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="A16"):
-        tapp.main([tree["settings"], tree["mav0"], "--sensor", "stereo", "--device", "cpu",
-                   "--out", str(tmp_path / "t.txt")])
+    """Settings with neither Camera.bf nor Stereo.T_c1_c2: both apps refuse
+    the stereo sensors before reading a frame."""
+    for sensor in ("stereo", "stereo-inertial"):
+        for app, err, extra in ((tapp, tcfg.SettingsError, ["--device", "cpu"]),
+                                (japp, jcfg.SettingsError, [])):
+            with pytest.raises(err, match="Camera.bf or Stereo.T_c1_c2"):
+                app.main([tree["settings"], tree["mav0"], "--sensor", sensor,
+                          "--out", str(tmp_path / "t.txt"), *extra])
 
 
 def test_atlas_save_and_resume(tree, tmp_path):

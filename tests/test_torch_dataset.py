@@ -93,6 +93,19 @@ def test_pgm_only_build_prefetches_png(euroc_dir, tmp_path, monkeypatch):   # no
         pf.close()
 
 
+def test_foreign_build_is_rebuilt(tmp_path, monkeypatch):
+    """A library under the build's name that cannot load here (a build made
+    on another host, linked to a libpng this one lacks) is built again."""
+    monkeypatch.setattr(tds, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(tds, "_lib", None)
+    monkeypatch.setattr(tds, "_lib_failed", False)
+    with open(tds._lib_path(), "wb") as f:
+        f.write(b"not a shared object")
+    assert tds.native_available()
+    with open(tds._lib_path(), "rb") as f:
+        assert f.read(4) == b"\x7fELF"
+
+
 def test_pure_python_fallback_is_announced(euroc_dir, monkeypatch):   # noqa: F811
     """Without a native build the readers fall back to pure Python, with a
     warning; the prefetcher needs the native runtime."""
@@ -155,26 +168,32 @@ def test_other_layouts(tmp_path):
 
 
 def test_write_euroc_sequence(tmp_path):
-    """Both writers on the same small photo world and IMU orbit: every file
-    equal, byte for byte."""
+    """Both writers on the same small photo world and IMU orbit, monocular
+    and as a rectified stereo tree (baseline > 0: cam1/ with
+    render_photo_stereo's right eye, one CSV per eye): every file equal,
+    byte for byte."""
     R, t, times, _, imu = tsyn.orbit_with_imu(n_frames=4, revs=0.05, dt=0.1)
     world = tsyn.make_photo_world(n_sprites=300, patch=11, seed=3, image_hw=(60, 80),
                                   layout="ring", ring_orbit_radius=5.0)
-    tsyn.write_euroc_sequence(str(tmp_path / "port"), world, R, t, times, imu=imu)
-    jsyn.write_euroc_sequence(str(tmp_path / "jax"), jsyn.PhotoWorld(*world), R, t, times,
-                              imu=imu)
-    cmp = filecmp.dircmp(str(tmp_path / "port"), str(tmp_path / "jax"))
-    files = []
+    for name, baseline, n_files in (("mono", 0.0, 4 + 3), ("stereo", 0.11, 2 * 4 + 4)):
+        port, jax_ = tmp_path / name / "port", tmp_path / name / "jax"
+        tsyn.write_euroc_sequence(str(port), world, R, t, times, baseline=baseline, imu=imu)
+        jsyn.write_euroc_sequence(str(jax_), jsyn.PhotoWorld(*world), R, t, times,
+                                  baseline=baseline, imu=imu)
+        files = []
 
-    def walk(c, rel=""):
-        assert not c.left_only and not c.right_only and not c.diff_files, rel
-        files.extend(os.path.join(rel, f) for f in c.same_files)
-        for name, sub in c.subdirs.items():
-            walk(sub, os.path.join(rel, name))
+        def walk(c, rel=""):
+            assert not c.left_only and not c.right_only and not c.diff_files, rel
+            files.extend(os.path.join(rel, f) for f in c.same_files)
+            for sub_name, sub in c.subdirs.items():
+                walk(sub, os.path.join(rel, sub_name))
 
-    walk(cmp)
-    for f in files:      # dircmp compares stat signatures; hold the bytes too
-        assert filecmp.cmp(str(tmp_path / "port" / f), str(tmp_path / "jax" / f), shallow=False)
-    assert len(files) == 4 + 3   # 4 frames, cam0/data.csv, imu0/data.csv, gt.txt
-    with pytest.raises(NotImplementedError, match="A16"):
-        tsyn.write_euroc_sequence(str(tmp_path / "stereo"), world, R, t, times, baseline=0.1)
+        walk(filecmp.dircmp(str(port), str(jax_)))
+        for f in files:   # dircmp compares stat signatures; hold the bytes too
+            assert filecmp.cmp(str(port / f), str(jax_ / f), shallow=False)
+        # the frames of each eye, a data.csv per eye, imu0/data.csv, gt.txt
+        assert len(files) == n_files, files
+    seq = tds.load_euroc_sequence(str(tmp_path / "stereo" / "port"))
+    assert len(seq["right_image_paths"]) == len(seq["image_paths"]) == 4
+    assert not np.array_equal(tds.read_image(seq["image_paths"][1]),
+                              tds.read_image(seq["right_image_paths"][1]))

@@ -2,8 +2,7 @@
 chip_smoke.py, profile_port.py, probe_history.py or tests/test_torch_cuda.py)
 imports JAX, Flax, Optax or the JAX package, its shipped codebooks are plain
 arrays, its entry points default to the card, and what it has not ported
-raises naming its slice (the multi-device BA, and the stereo variant of the
-inertial system)."""
+raises naming its slice (the multi-device BA)."""
 import ast
 import pathlib
 
@@ -134,7 +133,8 @@ def test_inertial_modules_are_covered():
 def test_inertial_system_entry_point():
     """MonocularInertialSLAM defaults to the card; its inserts stay on the
     host; its loop closer starts in the Sim3 mode (4-DoF once the IMU is
-    aligned); stereo inputs raise naming A16."""
+    aligned); it takes stereo inputs: bf set turns into a float32 scalar
+    on the system's device (slam/stereo_inertial.py sets it)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MonocularInertialSLAM(CAM, CALIB, device=None)
@@ -146,15 +146,15 @@ def test_inertial_system_entry_point():
     assert lc.pose_graph_mode == "sim3"
     lc.use_4dof = True
     assert lc.pose_graph_mode == "4dof"
-    assert slam.bf is None
-    with pytest.raises(NotImplementedError, match="A16"):
-        slam.bf = 400.0
+    assert slam.bf is None and slam._bf_arr() is None
+    slam.bf = 400.0
+    assert slam._bf_arr().dtype == torch.float32 and float(slam._bf_arr()) == 400.0
 
 
 def test_stereo_modules_are_covered():
-    """The stereo slice (A16 steps a-c) is port files this test scans."""
+    """The stereo modules are port files this test scans."""
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    for m in ("geometry/rectify.py", "slam/stereo.py"):
+    for m in ("geometry/rectify.py", "slam/stereo.py", "slam/stereo_inertial.py"):
         assert "rover_slam_tpu_torch/" + m in names, m
 
 

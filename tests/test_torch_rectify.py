@@ -10,7 +10,9 @@ eyes):
   1e-5 (bilinear weights in f32), the dots landing at the rectified points;
 - the unrectified end-to-end scene (12 frames) through both StereoSLAMs:
   the same tracking states, keyframe count and keyframe poses within 1e-4,
-  and the metric path length within 10 % of the truth on both.
+  and the metric path length within 10 % of the truth on both;
+- tests/test_rectify.py's settings case: a raw rig's settings dict builds a
+  rectified-frame StereoSLAM with the maps in both packages.
 The maps are held within 2e-3 px of the JAX package's: both build them in
 f64 numpy from an f32 half rotation (each package's own so3_exp/log)."""
 import numpy as np
@@ -165,3 +167,41 @@ def test_unrectified_stereo_tracks_e2e():
         est_t, est_R, est_tcw = slam.get_trajectory()
         p = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
         assert abs(np.linalg.norm(p[-1] - p[0]) - d_gt) / d_gt < 0.1
+
+
+def test_config_builds_rectification():
+    """tests/test_rectify.py::test_config_builds_rectification on both
+    packages: a EuRoC-style raw stereo settings dict (radtan distortion on
+    both eyes, Stereo.T_c1_c2) builds a StereoSLAM in the rectified frame
+    carrying the maps: its camera at K_new, its metric baseline within 0.1 %
+    of the rig's, and the port's camera, baseline and maps as the JAX
+    package's (maps within 2e-3 px, as _maps_both holds them)."""
+    from rover_slam_tpu.utils import config as jcfg
+    from rover_slam_tpu_torch.utils import config as tcfg
+    T_12 = np.eye(4)
+    T_12[:3, :3] = np.asarray(R_21).T
+    T_12[:3, 3] = -np.asarray(R_21).T @ T_21
+    d = {"Camera.type": "PinHole",
+         **{f"Camera1.{k}": float(v) for k, v in zip(("fx", "fy", "cx", "cy"), K1)},
+         **{f"Camera1.{k}": float(v) for k, v in zip(("k1", "k2", "p1", "p2"), D1)},
+         **{f"Camera2.{k}": float(v) for k, v in zip(("fx", "fy", "cx", "cy"), K2)},
+         **{f"Camera2.{k}": float(v) for k, v in zip(("k1", "k2", "p1", "p2"), D2)},
+         "Camera.width": 640, "Camera.height": 480,
+         "Stereo.T_c1_c2": {"data": T_12.reshape(-1).tolist()},
+         "ORBextractor.nFeatures": 256, "System.MapKeyFrames": 16,
+         "System.MapLandmarks": 2048, "loopClosing": 0}
+    st, sj = tcfg.load_settings(d, sensor="stereo"), jcfg.load_settings(d, sensor="stereo")
+    assert st.rectification.map1.shape == (480, 640, 2)
+    slam_t = tcfg.build_system(st, device="cpu")
+    slam_j = jcfg.build_system(sj)
+    assert isinstance(slam_t, tst.StereoSLAM) and isinstance(slam_j, jst.StereoSLAM)
+    for slam, s in ((slam_t, st), (slam_j, sj)):
+        assert slam.rectification is s.rectification
+        assert abs(float(slam.cam_params[0]) - s.rectification.K_new[0]) < 1e-4
+        assert abs(slam.baseline - np.linalg.norm(T_21)) / np.linalg.norm(T_21) < 1e-3
+    np.testing.assert_allclose(slam_t.cam_params.numpy(), np.asarray(slam_j.cam_params),
+                               rtol=1e-6)
+    assert abs(slam_t.baseline - slam_j.baseline) < 1e-6 * slam_j.baseline
+    for f in ("map1", "map2"):
+        np.testing.assert_allclose(getattr(st.rectification, f), getattr(sj.rectification, f),
+                                   rtol=0, atol=2e-3)

@@ -491,9 +491,10 @@ class AppLog(list):
 
 
 @contextlib.contextmanager
-def recording_app(app):
+def recording_app(app, method="track_frame"):
     """Patch an app module's build_system so that the system it builds logs
-    one entry per track_frame: (tracking state, imu_ready, keyframes, tracked
+    one entry per call of `method` (track_frame, or track_stereo_frame for
+    the stereo sensors): (tracking state, imu_ready, keyframes, tracked
     inliers, body position p_wb as a numpy array or None); yields the log."""
     log = AppLog()
     orig = app.build_system
@@ -501,7 +502,7 @@ def recording_app(app):
     def build(*a, **k):
         slam = orig(*a, **k)
         log.slam = slam
-        track = slam.track_frame
+        track = getattr(slam, method)
 
         def track_frame(*aa, **kk):
             info = track(*aa, **kk)
@@ -511,7 +512,7 @@ def recording_app(app):
                         None if p is None else np.asarray(_np(p), np.float64).copy()))
             return info
 
-        slam.track_frame = track_frame
+        setattr(slam, method, track_frame)
         return slam
 
     app.build_system = build
