@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. parity  — each kernel against its plain PyTorch version on the card, at
                the paths' shapes (B1 at B=1, 2, 3; B2 at the SuperPoint size
                and at relocalization's 1024 x 16384 x 256 and 16384 x 1024 x
-               256) and at the edges of the kernels' tilings.
+               256) and at the edges of the kernels' tilings; B1's autograd
+               Function (forward on the kernel, backward by recompute) at
+               path K2's shape against plain autograd.
   3. timing  — each kernel at the main path's shapes beside its bound, its
                plain version and a library call that computes the same thing,
                timed on the device by CUDA-graph replay (cuda_time_ms).
@@ -100,6 +102,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                (the IMU initialized, metric ATE after the init under
                J2_SI_ATE_BOUND_CM); both end in OK, and every stereo
                frame's fisheye match launches B2 at 512 x 512 x 64.
+ 15. path K  — the front-end trainers at the JAX trainers' widths (240x320,
+               batch 4), cut in steps and data: K1, superpoint_train.train
+               (lr 1e-3, K1_POOL pairs, K1_STEPS steps), then its held-out
+               mutual-NN evaluation through B2; K2, lightglue_train.train on
+               the shipped SuperPoint weights (9 layers, 512 keypoints, lr
+               2e-4, K2_PAIRS pairs, K2_STEPS steps), every attention call's
+               forward on B1 and its gradient by recompute, then its
+               held-out evaluation; K3, save_params of K2's parameters and
+               load_params back into a LightGlueMatcher that matches a
+               held-out pair exactly as the trained model does; K4, the
+               demo with --trace. Before them, K2's gradient with B1 against
+               the same model with the plain attentions swapped in. Gates
+               in phase_path_k.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -176,6 +191,16 @@ J_ATE_BOUND_CM = 89.2
 # twice the JAX package's CPU reading on the same scene
 # (parity_fullwidth.py --fisheye-stereo-inertial: JAX 19.02 cm, port 18.91 cm).
 J2_SI_ATE_BOUND_CM = 38.0
+
+
+# Path K: the trainers at the JAX trainers' widths, cut in steps and data.
+K_HW = (240, 320)
+K1_POOL, K1_STEPS = 16, 30
+K2_PAIRS, K2_STEPS = 16, 30
+K_TIMED_FROM = 3          # step times: the median over the steps from this one
+K_DEMO_FRAMES = 20
+# K2's gradient with B1 against the plain attentions, per parameter tensor.
+K_GRAD_COS = 0.99
 
 
 def masked_attention_f32p(q, k, v, mask_kv):
@@ -313,6 +338,38 @@ def _attention_case(fa, name, q, k, v, mask, masked_row=None):
     return err
 
 
+def _attention_grad_case(fa, g, dev, dtype):
+    """B1 under autograd (ops.flash_attention.KernelAttention) at path K2's
+    shape, B=4, N=512, H=4, Dh=64, with padded keys and one all-masked row:
+    the output has a grad_fn, the forward is within ATTN_TOL of the plain
+    version, and dq, dk, dv for one upstream gradient equal plain autograd's
+    to the bit (the backward is the plain version's autograd). Returns the
+    forward's max abs error."""
+    q, k, v, mask = attention_inputs(g, 4, 512, dev)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    mask[:, 448:] = False
+    mask[3] = False
+    up = torch.randn(q.shape, generator=g).to(dev, dtype)
+    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    b = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n_fwd, n_bwd = fa.attention_launches, fa.backward_recomputes
+    out = fa.masked_attention(*a, mask)
+    if out.grad_fn is None or fa.attention_launches != n_fwd + 1:
+        raise AssertionError("attention under grad: no kernel launch with a grad_fn")
+    out.backward(up)
+    ref = fa.masked_attention_plain(*b, mask)
+    ref.backward(up)
+    torch.cuda.synchronize()
+    err = float((out.detach().float() - ref.detach().float()).abs().max())
+    same = [torch.equal(x.grad, y.grad) for x, y in zip(a, b)]
+    log(f"# parity attention grad {dtype} B=4 N=512: forward max abs err {err:.3g}, "
+        f"dq/dk/dv equal to the bit {same}, backward recomputes "
+        f"{fa.backward_recomputes - n_bwd}")
+    if not (err < ATTN_TOL and all(same) and fa.backward_recomputes == n_bwd + 1):
+        raise AssertionError(f"attention gradient {dtype} disagrees with plain autograd")
+    return err
+
+
 def _nn_case(nm, name, d0, d1, v1, ties=()):
     """Kernel against plain: best and second within NN_VALUE_TOL, argmin
     identical wherever the plain best and second differ by more than it;
@@ -363,6 +420,8 @@ def phase_parity(dev):
     mask = (torch.rand(2, 1000, generator=g) > 0.2).to(dev)
     attn_err = max(attn_err, _attention_case(
         fa, "strided views B=2 N=1000", x[:, :, 0], x[:, :, 1], x[:, :, 2], mask))
+    for dtype in (torch.bfloat16, torch.float32):
+        attn_err = max(attn_err, _attention_grad_case(fa, g, dev, dtype))
 
     nn_err = 0.0
     # Path A's SuperPoint size, path B's synthetic size, ragged ones (N1 not
@@ -539,6 +598,7 @@ def _reset_launches():
     from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
     fa.attention_launches = 0
     fa.launches_by_batch.clear()
+    fa.backward_recomputes = 0
     nm.nn_launches = 0
     nm.launches_by_shape.clear()
 
@@ -546,6 +606,7 @@ def _reset_launches():
 def _launches() -> dict:
     from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
     return {"attention": fa.attention_launches, "nn": nm.nn_launches,
+            "attention_backward": fa.backward_recomputes,
             "attention_by_batch": dict(fa.launches_by_batch),
             "nn_by_shape": dict(nm.launches_by_shape)}
 
@@ -1853,6 +1914,202 @@ def phase_path_j(tmp_root: str):
     return j1, j2
 
 
+class StepWatch:
+    """The trainers' on_step callback: after every step, synchronize, stamp
+    the host clock and read the kernel counters; `first(model)` runs after
+    step 0 with its gradients on the parameters."""
+
+    def __init__(self, first=None):
+        self.first, self.stamps, self.counts = first, [], []
+
+    def __call__(self, it, model):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        self.counts.append(_launches())
+        if it == 0 and self.first is not None:
+            self.first(model)
+
+    def step_ms(self) -> float:
+        """Median host time of a step (batch, step, synchronize), over the
+        steps from K_TIMED_FROM on."""
+        return float(np.median(np.diff(self.stamps)[K_TIMED_FROM - 1:]) * 1e3)
+
+
+def _loss_gate(name, losses):
+    """Every loss finite; the mean of the last 5 below the first step's."""
+    loss = losses[:, 0]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"path {name}: a loss is not finite: {losses.tolist()}")
+    if not loss[-5:].mean() < loss[0]:
+        raise AssertionError(f"path {name}: the loss did not fall: first {loss[0]}, "
+                             f"last 5 {loss[-5:].tolist()}")
+
+
+def k2_gradient_parity(dev):
+    """One K2 batch (4 held-out pairs, shipped SuperPoint, 512 keypoints)
+    through a fresh LightGlue: the gradient with B1 against the gradient
+    with masked_attention_f32p and with masked_attention_plain swapped in,
+    cosine >= K_GRAD_COS for every parameter tensor (cross attention's key
+    biases excepted: their gradient is 0, the softmax ignoring a shift of a
+    row). Its launches are not counted."""
+    from rover_slam_tpu_torch.models import lightglue as lgm, weights as Wt
+    from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor
+    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
+    from rover_slam_tpu_torch.training import checkpoints, lightglue_train as lgt
+    saved = (fa.attention_launches, fa.backward_recomputes, nm.nn_launches)
+    ext = SuperPointExtractor(params=checkpoints.load_params(lgt.SHIPPED_SP),
+                              max_keypoints=512, device=dev)
+    ds = lgt.make_dataset(ext, np.random.default_rng(7), 4, image_hw=K_HW, n_kpts=512)
+    batch = {k: torch.from_numpy(np.stack([b[k] for b in ds])).to(dev) for k in ds[0]}
+    model = Wt.flax_init_(lgm.LightGlue(num_layers=LIGHTGLUE_LAYERS),
+                          torch.Generator().manual_seed(0)).to(dev)
+    grads = {}
+    for name, fn in (("kernel", fa.masked_attention), ("f32p", masked_attention_f32p),
+                     ("plain", fa.masked_attention_plain)):
+        model.zero_grad(set_to_none=True)
+        lgm.masked_attention = fn
+        try:
+            lgt.loss_fn(model, batch)[0].backward()
+        finally:
+            lgm.masked_attention = fa.masked_attention
+        grads[name] = {n: p.grad.double() for n, p in model.named_parameters()
+                       if not n.endswith("cross_attn.to_k.bias")}
+    fa.attention_launches, fa.backward_recomputes, nm.nn_launches = saved
+    worst = {}
+    for ref in ("f32p", "plain"):
+        cos = {n: float((g * grads[ref][n]).sum() / (g.norm() * grads[ref][n].norm()))
+               for n, g in grads["kernel"].items()}
+        worst[ref] = min(cos.items(), key=lambda kv: kv[1])
+    log("# path K2 gradient, B1 against plain attentions (worst tensor cosine):",
+        json.dumps(worst))
+    for ref, (n, c) in worst.items():
+        if not c >= K_GRAD_COS:
+            raise AssertionError(f"path K2 gradient: {n} cosine {c} against {ref}")
+    return worst
+
+
+def _first_step_grads(model):
+    """K2's first step: every gradient finite, every to_q / to_k / to_v
+    weight's gradient nonzero (a detached kernel output would leave them 0)."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    zero = [n for n, p in model.named_parameters()
+            if n.split(".")[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")
+            and not bool((p.grad != 0).any())]
+    n_qkv = sum(n.split(".")[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")
+                for n, _ in model.named_parameters())
+    log(f"# path K2 step 0: {len(bad)} gradients not finite, {len(zero)} of {n_qkv} "
+        f"to_q/to_k/to_v weight gradients zero")
+    if bad or zero or n_qkv != LIGHTGLUE_LAYERS * 2 * 3:
+        raise AssertionError(f"path K2 step 0: not finite {bad}, zero {zero}")
+
+
+def card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def phase_path_k(tmp_root: str):
+    """K1-K4 (see the module docstring), counted from one reset. Gates:
+    every loss finite and the mean of the last 5 under the first, in K1 and
+    K2; K1's evaluation launches B2; K2's step 0 passes _first_step_grads;
+    K2's steps launch B1 at least 4 x LIGHTGLUE_LAYERS times a step and
+    recompute a backward for every one of those launches; K3's saved keys
+    are those of the shipped lightglue_synth.npz, in float16, and the
+    loaded matcher's matches and scores equal the trained model's on a
+    held-out pair; K4 returns 0 and its trace holds the demo's spans."""
+    from rover_slam_tpu_torch.models.lightglue import LightGlueMatcher
+    from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor
+    from rover_slam_tpu_torch.slam import demo
+    from rover_slam_tpu_torch.training import checkpoints
+    from rover_slam_tpu_torch.training import lightglue_train as lgt, superpoint_train as spt
+    from rover_slam_tpu_torch.utils import profiling
+    dev = torch.device("cuda", 0)
+    t_k = time.perf_counter()
+    grad_parity = k2_gradient_parity(dev)
+    res = {"gradient_parity": grad_parity}
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    start1 = torch.cuda.memory_allocated()
+    w1 = StepWatch()
+    r1 = spt.train(steps=K1_STEPS, batch=4, lr=1e-3, image_hw=K_HW, pool=K1_POOL,
+                   log_every=10, device=dev, on_step=w1)
+    l1 = _launches()
+    res["K1"] = {"step_ms": w1.step_ms(), "pool_s": r1.setup_s,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "peak_over_start": torch.cuda.max_memory_allocated() - start1,
+                 "loss_first": r1.losses[0].tolist(), "loss_last": r1.losses[-1].tolist(),
+                 "heldout_precision": float(r1.heldout[0]),
+                 "heldout_matches_per_pair": float(r1.heldout[1]),
+                 "nn_in_training": w1.counts[-1]["nn"], "nn_in_eval": l1["nn"] - w1.counts[-1]["nn"]}
+    _loss_gate("K1", r1.losses)
+    if not res["K1"]["nn_in_eval"] > 0:
+        raise AssertionError("path K1: the evaluation launched no B2")
+
+    torch.cuda.reset_peak_memory_stats()
+    start2 = torch.cuda.memory_allocated()
+    w2 = StepWatch(first=_first_step_grads)
+    r2 = lgt.train(lgt.SHIPPED_SP, steps=K2_STEPS, batch=4, lr=2e-4, n_pairs=K2_PAIRS,
+                   num_layers=LIGHTGLUE_LAYERS, image_hw=K_HW, n_kpts=512, log_every=10,
+                   device=dev, on_step=w2)
+    l2 = _launches()
+    fwd = w2.counts[-1]["attention"] - l1["attention"]
+    bwd = w2.counts[-1]["attention_backward"] - l1["attention_backward"]
+    res["K2"] = {"step_ms": w2.step_ms(), "dataset_s": r2.setup_s,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "peak_over_start": torch.cuda.max_memory_allocated() - start2,
+                 "loss_first": r2.losses[0].tolist(), "loss_last": r2.losses[-1].tolist(),
+                 "heldout_precision": float(r2.heldout[0]),
+                 "heldout_recall": float(r2.heldout[1]),
+                 "attention_in_training": fwd, "attention_backward": bwd,
+                 "attention_in_eval": l2["attention"] - w2.counts[-1]["attention"]}
+    _loss_gate("K2", r2.losses)
+    if not (fwd >= 4 * LIGHTGLUE_LAYERS * K2_STEPS and bwd == fwd):
+        raise AssertionError(f"path K2: {fwd} B1 launches under grad and {bwd} backward "
+                             f"recomputes in {K2_STEPS} steps")
+
+    ext = SuperPointExtractor(params=checkpoints.load_params(lgt.SHIPPED_SP),
+                              max_keypoints=512, device=dev)
+    pair = lgt.make_dataset(ext, np.random.default_rng(101), 1, image_hw=K_HW, n_kpts=512)[0]
+    args = [torch.from_numpy(pair[k][None]).to(dev) for k in ("k0", "d0", "v0", "k1", "d1", "v1")]
+    f16, f32 = (os.path.join(tmp_root, f"lightglue_k2_{n}.npz") for n in ("f16", "f32"))
+    checkpoints.save_params(f16, r2.params)
+    checkpoints.save_params(f32, r2.params, dtype=np.float32)
+    shipped = os.path.join(os.path.dirname(lgt.SHIPPED_SP), "lightglue_synth.npz")
+    with np.load(f16) as z, np.load(shipped) as ref:
+        same_keys = sorted(z.files) == sorted(ref.files)
+        f16_only = all(z[k].dtype == np.float16 for k in z.files)
+    loaded = LightGlueMatcher(params=checkpoints.load_params(f32), num_layers=LIGHTGLUE_LAYERS,
+                              threshold=0.1, device=dev)(*args)
+    trained = lgt._RawMatcher(r2.model, threshold=0.1)(*args)
+    exact = all(torch.equal(loaded[k], trained[k]) for k in ("matches0", "mscores0"))
+    res["K3"] = {"keys_equal_shipped": same_keys, "float16": f16_only, "matches_equal": exact,
+                 "matches": int((trained["matches0"] >= 0).sum())}
+    if not (same_keys and f16_only and exact):
+        raise AssertionError(f"path K3: {res['K3']}")
+
+    trace_dir = os.path.join(tmp_root, "demo_trace")
+    t_d = time.perf_counter()
+    rc = demo.main(["--frames", str(K_DEMO_FRAMES), "--trace", trace_dir])
+    demo_s = time.perf_counter() - t_d
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        text = f.read()
+    spans = ['"frame#0"', f'"frame#{K_DEMO_FRAMES - 1}"', '"track_frame"']
+    res["K4"] = {"rc": rc, "s": demo_s, "trace_mb": len(text) / 2**20,
+                 "spans": {sp: sp in text for sp in spans},
+                 "kernel_events": text.count('"cat": "kernel"')}
+    if not (rc == 0 and all(res["K4"]["spans"].values())):
+        raise AssertionError(f"path K4: {res['K4']}")
+    res["launches"] = _launches()
+    res["s"] = time.perf_counter() - t_k
+    res["card"] = card()
+    log("# path K:", json.dumps(res))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1889,6 +2146,8 @@ def main():
     del scene_i
     with tempfile.TemporaryDirectory(prefix="path_j_") as tmp_root:
         paths["J1"], paths["J2"] = phase_path_j(tmp_root)
+    with tempfile.TemporaryDirectory(prefix="path_k_") as tmp_root:
+        paths["K"] = phase_path_k(tmp_root)
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 
@@ -1909,11 +2168,7 @@ def main():
     ]
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-          f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

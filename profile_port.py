@@ -8,6 +8,7 @@ monocular-inertial system of path G (--inertial).
     python3 profile_port.py --inertial --frames 160 --window 40 [--pipeline K]
     python3 profile_port.py --read-trace profile_out/profile_port_p4_loop_trace.json.gz
     python3 profile_port.py --ate-spread RUNS [--frames 80] [--pipeline K] [--deterministic]
+    python3 profile_port.py --train lightglue|superpoint [--frames 5] [--window 10]
 
 Records device activity only (CUPTI kernel records; no host-op tracing, so
 the host loop runs close to its unprofiled speed). Prints the window's wall
@@ -32,6 +33,14 @@ IMU samples fed before each frame, loop closing on); the window is the last
 --window frames, after the IMU init. The output adds `preintegration`: one
 frame's IMU window (its samples) preintegrated alone under the profiler,
 with its kernel launches and device time.
+
+With --train lightglue (or superpoint) it profiles chip_smoke.py path K's
+trainer instead: --window steps after --frames warm-up steps (the counts
+are steps here), once recording device activity only (the step's wall
+time, the device's busy share, device time by kernel, B1's forward
+kernels) and once with host activity too, KernelAttention's backward in a
+named span, for the kernel time and launches a step of the plain
+recomputes in B1's backward.
 
 With --ate-spread, it measures instead path A's trajectory error (path C's
 with --pipeline 4 --frames 160), RUNS runs through fresh systems for each
@@ -238,6 +247,99 @@ def preint_census(scene, slam) -> dict:
             "device_ms": sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3}
 
 
+def _kernel_rows(ka):
+    return sorted(((e.key, e.self_device_time_total, e.count) for e in ka
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+
+
+def _span_kernels(events, name: str) -> dict:
+    """Kernel launches and their summed device time (ms) under every host
+    span called `name` (the span's own device range would count the gaps
+    between its kernels too)."""
+    out = {"kernel_ms": 0.0, "launches": 0, "spans": 0}
+
+    def walk(ev):
+        for k in ev.kernels:
+            out["kernel_ms"] += k.duration / 1e3
+            out["launches"] += 1
+        for c in ev.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+            out["spans"] += 1
+            walk(e)
+    return out
+
+
+def train_profile(cs, which: str, warm: int, window: int) -> dict:
+    """Path K's trainer (K1 superpoint or K2 lightglue, chip_smoke's
+    settings) with the profiler on over steps [warm, warm + window)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from rover_slam_tpu_torch.ops import flash_attention as fa
+    from rover_slam_tpu_torch.training import lightglue_train as lgt, superpoint_train as spt
+    dev = torch.device("cuda", 0)
+    bwd = fa.KernelAttention.backward
+
+    def spanned(ctx, grad_out):
+        with record_function("attention_backward_recompute"):
+            return bwd(ctx, grad_out)
+
+    out = {}
+    for host in (False, True):
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+        st = {}
+
+        def on_step(it, model):
+            torch.cuda.synchronize()
+            if it == warm - 1:
+                st["prof"] = profile(activities=acts)
+                st["prof"].__enter__()
+                st["t0"] = time.perf_counter()
+            elif it == warm + window - 1:
+                st["wall_us"] = (time.perf_counter() - st["t0"]) * 1e6
+                st["prof"].__exit__(None, None, None)
+
+        if host:
+            fa.KernelAttention.backward = staticmethod(spanned)
+        try:
+            if which == "lightglue":
+                lgt.train(lgt.SHIPPED_SP, steps=warm + window, batch=4, lr=2e-4,
+                          n_pairs=cs.K2_PAIRS, num_layers=cs.LIGHTGLUE_LAYERS,
+                          image_hw=cs.K_HW, n_kpts=512, log_every=10**6, device=dev,
+                          on_step=on_step)
+            else:
+                spt.train(steps=warm + window, batch=4, lr=1e-3, image_hw=cs.K_HW,
+                          pool=cs.K1_POOL, log_every=10**6, device=dev, on_step=on_step)
+        finally:
+            fa.KernelAttention.backward = staticmethod(bwd)
+        prof = st["prof"]
+        ka = prof.key_averages()
+        if host:
+            out["attention_backward_per_step"] = {
+                k: v / window for k, v in
+                _span_kernels(prof.events(), "attention_backward_recompute").items()}
+            out["host_traced_ms_per_step"] = st["wall_us"] / 1e3 / window
+            continue
+        rows = _kernel_rows(ka)
+        busy = _busy_us(prof.events())
+        dev_total = sum(r[1] for r in rows)
+        b1 = [r for r in rows if "flash" in r[0]]
+        out.update({"trainer": which, "steps_profiled": window,
+                    "b1_forward_per_step": {"kernel_ms": sum(r[1] for r in b1) / 1e3 / window,
+                                            "launches": sum(r[2] for r in b1) / window},
+                    "ms_per_step": st["wall_us"] / 1e3 / window,
+                    "device_busy_ms_per_step": busy / 1e3 / window,
+                    "device_busy_share": busy / st["wall_us"],
+                    "kernel_launches_per_step": sum(r[2] for r in rows) / window,
+                    "top_kernels": [{"name": k[:90], "ms_per_step": t / 1e3 / window,
+                                     "launches_per_step": c / window,
+                                     "share_of_device": t / max(dev_total, 1e-9)}
+                                    for k, t, c in rows[:15]]})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -262,6 +364,9 @@ def main():
                     help="deterministic torch algorithms where they exist; prints the ops "
                          "that have none (alone: path A once, with a census of the ops "
                          "the switch reroutes)")
+    ap.add_argument("--train", choices=("lightglue", "superpoint"), default=None,
+                    help="profile path K's trainer instead (--frames: warm-up steps, "
+                         "--window: profiled steps)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
@@ -279,6 +384,10 @@ def main():
 
     dev = torch.device("cuda", 0)
     cs.phase_build()
+    if args.train:
+        print(json.dumps(train_profile(cs, args.train, args.frames, args.window), indent=1))
+        os.system("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
+        return
     scene = cs.PathG(dev, args.frames) if args.inertial else cs.PathA(dev, args.frames)
     if args.deterministic and not args.ate_spread:
         warned = set()
@@ -358,9 +467,7 @@ def main():
     events = prof.events()
     busy = _busy_us(events)
     ka = prof.key_averages()
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    rows = _kernel_rows(ka)
     dev_total = sum(r[1] for r in rows)
     out = {"pipeline": args.pipeline, "frames": args.frames, "loop": args.loop,
            "window": [start, end], "loop_fired_at_frame": fire,

@@ -4,10 +4,21 @@ log-assignment and a matchability dustbin.
 Counterpart of rover_slam_tpu/models/lightglue.py. Every attention call goes
 through `ops.flash_attention.masked_attention`, i.e. the hand-written CUDA
 kernel at every N on the card (the JAX package only switches to its Pallas
-kernel from 2048 keypoints). The layer stack runs in `dtype` (bf16 on the
-main path); positional encoding, assignment head and matchability are f32.
-Flax defaults are pinned: LayerNorm eps 1e-6, tanh-approximate GELU,
-pairwise rotary layout.
+kernel from 2048 keypoints). Flax defaults are pinned: LayerNorm eps 1e-6,
+tanh-approximate GELU, pairwise rotary layout.
+
+Dtypes. Every Dense of the layer stack (input_proj and the transformer
+layers) computes in `dtype` (bf16 on the main path): its input and its
+parameters are cast to `dtype` for each call, as a Flax Dense with `dtype=`
+does. Positional encoding, the assignment head, matchability and the
+LayerNorm statistics and affine are f32.
+- Serving (LightGlueMatcher): `to_compute_dtype()` casts the layer stack's
+  Dense parameters to `dtype` once, so the per-call cast is a no-op; the
+  outputs are the training forward's to the bit.
+- Training (training/lightglue_train.py): the parameters stay f32, as Flax
+  keeps them, the optimizer updates them in f32, and each call casts them;
+  gradients reach them through the casts and through the attention kernel
+  (ops.flash_attention.KernelAttention).
 """
 from __future__ import annotations
 
@@ -29,9 +40,10 @@ def normalize_keypoints(kpts: torch.Tensor, image_hw) -> torch.Tensor:
     return (kpts - center) / (max(h, w) / 2.0)
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Dense in the layer's parameter dtype (the Flax `dtype=` semantics)."""
-    return F.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Dense computing in `dtype` (the Flax `dtype=` semantics)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 class LearnableFourierPE(nn.Module):
@@ -43,7 +55,7 @@ class LearnableFourierPE(nn.Module):
         self.Wr = nn.Linear(2, head_dim // 2, bias=False)
 
     def forward(self, pos):
-        f = _linear(self.Wr, pos)
+        f = _linear(self.Wr, pos, torch.float32)
         return (torch.repeat_interleave(torch.cos(f), 2, dim=-1),
                 torch.repeat_interleave(torch.sin(f), 2, dim=-1))
 
@@ -59,9 +71,10 @@ def apply_rotary(x, cos, sin):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.to_q = nn.Linear(dim, dim)
         self.to_k = nn.Linear(dim, dim)
         self.to_v = nn.Linear(dim, dim)
@@ -72,43 +85,44 @@ class Attention(nn.Module):
         Nk = x_kv.shape[1]
         H = self.num_heads
         Dh = dim // H
-        q = _linear(self.to_q, x_q).reshape(B, Nq, H, Dh)
-        k = _linear(self.to_k, x_kv).reshape(B, Nk, H, Dh)
-        v = _linear(self.to_v, x_kv).reshape(B, Nk, H, Dh)
+        q = _linear(self.to_q, x_q, self.dtype).reshape(B, Nq, H, Dh)
+        k = _linear(self.to_k, x_kv, self.dtype).reshape(B, Nk, H, Dh)
+        v = _linear(self.to_v, x_kv, self.dtype).reshape(B, Nk, H, Dh)
         if rope_q is not None:
             q = apply_rotary(q, *rope_q)
             k = apply_rotary(k, *rope_k)
         out = masked_attention(q, k, v, mask_kv)
-        return _linear(self.to_out, out.reshape(B, Nq, dim))
+        return _linear(self.to_out, out.reshape(B, Nq, dim), self.dtype)
 
 
 class ConcatFFN(nn.Module):
     """x + MLP([x, message]) with LayerNorm (eps 1e-6, f32) and tanh GELU."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(2 * dim, 2 * dim)
         self.ln = nn.LayerNorm(2 * dim, eps=1e-6)
         self.fc2 = nn.Linear(2 * dim, dim)
 
     def forward(self, x, message):
-        y = _linear(self.fc1, torch.cat([x, message], dim=-1))
+        y = _linear(self.fc1, torch.cat([x, message], dim=-1), self.dtype)
         y = F.layer_norm(y.float(), self.ln.normalized_shape, self.ln.weight,
                          self.ln.bias, self.ln.eps).to(x.dtype)
         y = F.gelu(y, approximate="tanh")
-        return x + _linear(self.fc2, y)
+        return x + _linear(self.fc2, y, self.dtype)
 
 
 class TransformerLayer(nn.Module):
     """Self-attention (rotary) then cross-attention, each followed by a
     concat-FFN; weights shared across the two images."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype):
         super().__init__()
-        self.self_attn = Attention(dim, num_heads)
-        self.self_ffn = ConcatFFN(dim)
-        self.cross_attn = Attention(dim, num_heads)
-        self.cross_ffn = ConcatFFN(dim)
+        self.self_attn = Attention(dim, num_heads, dtype)
+        self.self_ffn = ConcatFFN(dim, dtype)
+        self.cross_attn = Attention(dim, num_heads, dtype)
+        self.cross_ffn = ConcatFFN(dim, dtype)
 
     def forward(self, d0, d1, rope0, rope1, m0, m1):
         s0 = self.self_attn(d0, d0, m0, rope_q=rope0, rope_k=rope0)
@@ -128,37 +142,38 @@ class LightGlue(nn.Module):
         self.dtype = dtype
         self.input_proj = nn.Linear(desc_dim, dim)
         self.posenc = LearnableFourierPE(dim // num_heads)
-        self.layers = nn.ModuleList(TransformerLayer(dim, num_heads)
+        self.layers = nn.ModuleList(TransformerLayer(dim, num_heads, dtype)
                                     for _ in range(num_layers))
         self.final_proj = nn.Linear(dim, dim)
         self.matchability = nn.Linear(dim, 1)
 
     def to_compute_dtype(self):
-        """Cast the layer stack to `dtype`; posenc, the assignment head and
-        the LayerNorm affine parameters stay f32, as Flax keeps them."""
-        self.input_proj.to(self.dtype)
-        self.layers.to(self.dtype)
-        for m in self.layers.modules():
-            if isinstance(m, nn.LayerNorm):
-                m.float()
+        """Serving: cast the Dense parameters of the layer stack to `dtype`
+        once. Posenc, the assignment head and the LayerNorm affine
+        parameters stay f32 (cast to bf16 and back, a LayerNorm scale would
+        lose its low bits, which Flax keeps). The outputs are those of the
+        f32 parameters cast per call."""
+        for m in (self.input_proj, *self.layers.modules()):
+            if isinstance(m, nn.Linear):
+                m.to(self.dtype)
         return self
 
     def forward(self, kpts0, desc0, mask0, kpts1, desc1, mask1):
         """kpts [B,N,2] in [-1,1]; desc [B,N,256]; mask [B,N] bool. Returns
         (log_assignment [B,N0+1,N1+1], matchability0 [B,N0], matchability1)."""
-        d0 = _linear(self.input_proj, desc0)
-        d1 = _linear(self.input_proj, desc1)
+        d0 = _linear(self.input_proj, desc0, self.dtype)
+        d1 = _linear(self.input_proj, desc1, self.dtype)
         rope0 = tuple(r.to(self.dtype) for r in self.posenc(kpts0.float()))
         rope1 = tuple(r.to(self.dtype) for r in self.posenc(kpts1.float()))
         for layer in self.layers:
             d0, d1 = layer(d0, d1, rope0, rope1, mask0, mask1)
         scale = float(self.dim) ** 0.25
-        md0 = _linear(self.final_proj, d0.float()) / scale
-        md1 = _linear(self.final_proj, d1.float()) / scale
+        md0 = _linear(self.final_proj, d0.float(), torch.float32) / scale
+        md1 = _linear(self.final_proj, d1.float(), torch.float32) / scale
         sim = torch.einsum("bmd,bnd->bmn", md0, md1)
         sim = torch.where(mask0[:, :, None] & mask1[:, None, :], sim, NEG_INF)
-        z0 = _linear(self.matchability, d0.float())[..., 0]
-        z1 = _linear(self.matchability, d1.float())[..., 0]
+        z0 = _linear(self.matchability, d0.float(), torch.float32)[..., 0]
+        z1 = _linear(self.matchability, d1.float(), torch.float32)[..., 0]
         scores0 = F.log_softmax(sim, dim=2)
         scores1 = F.log_softmax(sim, dim=1)
         cert = F.logsigmoid(z0)[:, :, None] + F.logsigmoid(z1)[:, None, :]

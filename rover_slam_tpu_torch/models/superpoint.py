@@ -4,7 +4,9 @@ Counterpart of rover_slam_tpu/models/superpoint.py. The network runs in NCHW
 internally; the public functions keep the JAX package's layouts (image
 [B,H,W] or [B,H,W,1], dense prob [B,H,W], coarse descriptors
 [B,H/8,W/8,256]). Convolutions run in `dtype` (bf16 on the main path, with
-f32 accumulation); the detector softmax and descriptor normalization are f32.
+f32 accumulation) on f32 parameters cast for each call, as Flax's `dtype=`
+does, so training (training/superpoint_train.py) updates f32 parameters; the
+detector softmax and descriptor normalization are f32.
 """
 from __future__ import annotations
 
@@ -41,8 +43,10 @@ class SuperPoint(nn.Module):
         return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                         padding=conv.padding)
 
-    def forward(self, image):
-        """image: [B, H, W, 1] float32 in [0, 1]."""
+    def forward(self, image, return_logits: bool = False):
+        """image: [B, H, W, 1] float32 in [0, 1]. return_logits=True adds the
+        raw [B,Hc,Wc,65] f32 detector logits (NHWC, the dustbin last), which
+        training needs."""
         x = image.permute(0, 3, 1, 2).to(self.dtype)
         for i, (name, _, _) in enumerate(_LAYERS):
             x = F.relu(self._conv(name, x))
@@ -58,6 +62,8 @@ class SuperPoint(nn.Module):
         e = F.relu(self._conv("convDa", x))
         desc = self._conv("convDb", e).float().permute(0, 2, 3, 1)   # NHWC
         desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-8)
+        if return_logits:
+            return prob, desc, logits.permute(0, 2, 3, 1)
         return prob, desc
 
 

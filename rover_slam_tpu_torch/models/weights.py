@@ -2,9 +2,12 @@
 
 Flax stores a conv kernel as [kh, kw, in, out] and a Dense kernel as
 [in, out]; torch wants [out, in, kh, kw] and Linear [out, in]. LayerNorm's
-`scale` is torch's `weight`. These are the inverses of the converters in
-rover_slam_tpu/models/superpoint.py (`load_torch_weights`) and
-rover_slam_tpu/models/lightglue.py (`load_torch_weights`).
+`scale` is torch's `weight`. `superpoint_state_dict` / `lightglue_state_dict`
+carry a tree into a port module (the inverses of the converters in
+rover_slam_tpu/models/superpoint.py and lightglue.py, `load_torch_weights`);
+`superpoint_params` / `lightglue_params` carry a port module's state dict
+back into the tree (numpy float32), the layout training.checkpoints
+.save_params writes.
 """
 from __future__ import annotations
 
@@ -37,6 +40,45 @@ def superpoint_state_dict(flax_params: dict) -> dict:
     return sd
 
 
+# Flax's default kernel init, lecun_normal: a normal of std sqrt(1 / fan_in)
+# cut at +-2 std and rescaled by the std of the cut unit normal.
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Initialize every Linear and Conv2d of `module` as Flax's Dense and
+    Conv do (kernels lecun_normal, biases 0) and every LayerNorm to scale 1,
+    bias 0, drawing from `generator` in module order."""
+    for m in module.modules():
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            std = float(np.sqrt(1.0 / fan_in)) / _TRUNC_STD
+            with torch.no_grad():
+                torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                            generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+        elif isinstance(m, torch.nn.LayerNorm):
+            torch.nn.init.ones_(m.weight)
+            torch.nn.init.zeros_(m.bias)
+    return module
+
+
+def _n(x) -> np.ndarray:
+    return np.ascontiguousarray(x.detach().float().cpu().numpy())
+
+
+def superpoint_params(state_dict: dict) -> dict:
+    """A port SuperPoint's state dict as the JAX package's parameter tree."""
+    params = {}
+    for name in SUPERPOINT_LAYERS:
+        leaf = {"kernel": np.ascontiguousarray(
+                    _n(state_dict[f"{name}.weight"]).transpose(2, 3, 1, 0)),
+                "bias": _n(state_dict[f"{name}.bias"])}
+        params[name] = leaf if name in ("convPb", "convDb") else {"conv": leaf}
+    return params
+
+
 def _dense(sd: dict, prefix: str, leaf: dict, bias: bool = True):
     sd[f"{prefix}.weight"] = _t(np.asarray(leaf["kernel"]).T)
     if bias:
@@ -64,6 +106,35 @@ def lightglue_state_dict(flax_params: dict, num_layers: int | None = None) -> di
             sd[f"layers.{i}.{blk}.ln.bias"] = _t(lp[blk]["ln"]["bias"])
         i += 1
     return sd
+
+
+def lightglue_params(state_dict: dict) -> dict:
+    """A port LightGlue's state dict as the JAX package's parameter tree
+    (every layer the module has)."""
+    def dense(prefix, bias=True):
+        leaf = {"kernel": np.ascontiguousarray(_n(state_dict[f"{prefix}.weight"]).T)}
+        if bias:
+            leaf["bias"] = _n(state_dict[f"{prefix}.bias"])
+        return leaf
+
+    params = {"input_proj": dense("input_proj"),
+              "posenc": {"Wr": dense("posenc.Wr", bias=False)},
+              "final_proj": dense("final_proj"),
+              "matchability": dense("matchability")}
+    i = 0
+    while f"layers.{i}.self_attn.to_q.weight" in state_dict:
+        p = f"layers.{i}"
+        layer = {blk: {lin: dense(f"{p}.{blk}.{lin}")
+                       for lin in ("to_q", "to_k", "to_v", "to_out")}
+                 for blk in ("self_attn", "cross_attn")}
+        for blk in ("self_ffn", "cross_ffn"):
+            layer[blk] = {"fc1": dense(f"{p}.{blk}.fc1"),
+                          "ln": {"scale": _n(state_dict[f"{p}.{blk}.ln.weight"]),
+                                 "bias": _n(state_dict[f"{p}.{blk}.ln.bias"])},
+                          "fc2": dense(f"{p}.{blk}.fc2")}
+        params[f"layer_{i}"] = layer
+        i += 1
+    return params
 
 
 def lightglue_official_state_dict(flax_params: dict, num_layers: int = 9) -> dict:

@@ -14,6 +14,13 @@ the kernel in csrc/flash_attention.cu or the call raises. bf16 (the main
 path) runs on the tensor cores, with the softmax weights P carried as two
 bf16 terms (hi + lo) where the plain version rounds them to bf16 once; f32
 runs on the CUDA cores.
+
+Gradients: the kernel has no backward. When q, k or v requires a gradient
+on the card, the call goes through `KernelAttention`, whose forward is the
+same launch and whose backward recomputes `masked_attention_plain` on the
+saved inputs and differentiates it: the gradient the JAX package takes
+(XLA's autodiff of the same plain path; its Pallas kernel is never
+differentiated). On the CPU autograd runs through the plain version itself.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ _HEAD_DIMS = (32, 64)
 MAX_KV_BF16 = 131072
 
 # Kernel launches since the last reset (chip_smoke.py reads and resets
-# both), in all and by batch size B.
+# these), in all and by batch size B, and the backward recomputes of
+# KernelAttention (one for each launch whose output was differentiated).
 attention_launches = 0
 launches_by_batch = collections.Counter()
+backward_recomputes = 0
 
 
 def _scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -55,7 +64,32 @@ def masked_attention(q, k, v, mask_kv):
     """softmax(q k^T / sqrt(Dh), masked over kv) @ v; [B, Nq, H, Dh] out."""
     if q.device.type == "cpu":
         return masked_attention_plain(q, k, v, mask_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return KernelAttention.apply(q, k, v, mask_kv)
     return _launch(_scale_q(q), k, v, mask_kv)
+
+
+class KernelAttention(torch.autograd.Function):
+    """Forward: the kernel launch of `masked_attention`. Backward: autograd
+    of `masked_attention_plain`, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_kv):
+        ctx.save_for_backward(q, k, v, mask_kv)
+        return _launch(_scale_q(q), k, v, mask_kv)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        global backward_recomputes
+        q, k, v, mask_kv = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        ins = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), need)]
+        with torch.enable_grad():
+            out = masked_attention_plain(*ins, mask_kv)
+            got = iter(torch.autograd.grad(out, [x for x in ins if x.requires_grad],
+                                           grad_out))
+        backward_recomputes += 1
+        return tuple(next(got) if n else None for n in need) + (None,)
 
 
 def _launch(q, k, v, mask_kv):

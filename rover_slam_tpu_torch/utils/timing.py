@@ -35,3 +35,10 @@ class StageTimers:
                           "max_ms": float(a.max()),
                           "count": len(v)}
         return out
+
+    def report(self) -> str:
+        lines = ["stage              mean_ms  median_ms  max_ms  count"]
+        for k, s in sorted(self.summary().items()):
+            lines.append(f"{k:<18} {s['mean_ms']:8.2f} {s['median_ms']:9.2f} "
+                         f"{s['max_ms']:7.1f} {s['count']:6d}")
+        return "\n".join(lines)

@@ -6,7 +6,9 @@ weights give the same outputs at tests/test_torch_frontend.py's tolerances
 (SuperPoint dense outputs atol 1e-4 in f32; LightGlue log-assignment atol
 1e-3 and matchability atol 1e-4 in f32, >= 99 % equal matches). The
 official-layout writers of the port (models.weights) round-trip the shipped
-synth weights."""
+synth weights. The port's save_params writes the JAX package's file (keys,
+dtypes, values) from a tree carried through a port module and back, and the
+JAX package's load_params of a port file gives the port's LightGlue."""
 import os
 
 import numpy as np
@@ -142,3 +144,66 @@ def test_official_writers_round_trip(tmp_path, net):
     for k in want:
         np.testing.assert_array_equal(ft[k], want[k], err_msg=k)
         np.testing.assert_array_equal(fj[k], want[k], err_msg=k)
+
+
+def _jax_init(net):
+    if net == "superpoint":
+        return jsp.SuperPoint().init(jax.random.PRNGKey(0), jnp.zeros((1, 48, 64, 1)))["params"]
+    z = jnp.zeros((1, 32, 2)), jnp.zeros((1, 32, 256)), jnp.ones((1, 32), bool)
+    return jlg.LightGlue(num_layers=L).init(jax.random.PRNGKey(0), *z, *z)["params"]
+
+
+@pytest.mark.parametrize("net", ["superpoint", "lightglue"])
+def test_save_params_writes_the_jax_file(tmp_path, net):
+    """A JAX-initialized tree carried into a port module and back
+    (weights.*_state_dict, then weights.*_params), saved by the port's
+    save_params, holds the keys, dtypes and values of the JAX package's
+    save_params of the tree, in its float16 default and in float32."""
+    from rover_slam_tpu.training import checkpoints as jck
+    from rover_slam_tpu_torch.training import checkpoints as tck
+    tree = jax.tree.map(np.asarray, _jax_init(net))
+    if net == "superpoint":
+        module = tsp.SuperPoint()
+        module.load_state_dict(W.superpoint_state_dict(tree))
+        back = W.superpoint_params(module.state_dict())
+    else:
+        module = tlg.LightGlue(num_layers=L)
+        module.load_state_dict(W.lightglue_state_dict(tree))
+        back = W.lightglue_params(module.state_dict())
+    for dtype in (np.float16, np.float32):
+        pt, pj = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+        tck.save_params(pt, back, dtype=dtype)
+        jck.save_params(pj, _jax_init(net), dtype=dtype)
+        with np.load(pt) as a, np.load(pj) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype == dtype and a[k].shape == b[k].shape, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_jax_load_params_reads_the_port_file(tmp_path):
+    """The port's file of a port-initialized LightGlue, read by the JAX
+    package's load_params, gives the port's LightGlue output in f32 to 1e-5,
+    absolute and relative (the log-assignment reaches -30, where 1e-5
+    absolute is a few f32 ulps)."""
+    from rover_slam_tpu.training import checkpoints as jck
+    from rover_slam_tpu_torch.training import checkpoints as tck
+    model = W.flax_init_(tlg.LightGlue(num_layers=L), torch.Generator().manual_seed(0))
+    path = str(tmp_path / "lightglue.npz")
+    tck.save_params(path, W.lightglue_params(model.state_dict()))
+    with np.load(os.path.join(ASSETS, "lightglue_synth.npz")) as shipped, np.load(path) as z:
+        assert {k for k in shipped.files if not k.startswith("layer_")
+                or int(k.split("/")[0][6:]) < L} == set(z.files)
+    inp = _lg_inputs(np.random.default_rng(0), 48, n_valid=40)
+    pj = jck.load_params(path)
+    la_j, z0_j, z1_j = jlg.LightGlue(num_layers=L, dtype=jnp.float32).apply(
+        {"params": pj}, *(jnp.asarray(x) for x in inp))
+    model_t = tlg.LightGlue(num_layers=L, dtype=torch.float32)
+    model_t.load_state_dict(W.lightglue_state_dict(tck.load_params(path)))
+    with torch.no_grad():
+        la_t, z0_t, z1_t = model_t(*(torch.from_numpy(x) for x in inp))
+    valid = np.zeros(la_t.shape, bool)
+    valid[0, :41, :46] = True
+    for got, want in ((la_t.numpy()[valid], np.asarray(la_j)[valid]),
+                      (z0_t.numpy(), np.asarray(z0_j)), (z1_t.numpy(), np.asarray(z1_j))):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -76,6 +76,28 @@ def test_attention_kernel_reads_strided_views(dev):
     assert float((out.float() - ref.float()).abs().max()) < 0.02
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_gradient(dev, dtype):
+    """Inputs that require a gradient: the forward is the kernel launch
+    (output with a grad_fn), the backward recomputes the plain version and
+    gives plain autograd's gradients to the bit."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(4, 512, 4, 64, generator=g).to(dev, dtype) for _ in range(3))
+    mask = (torch.rand(4, 512, generator=g) > 0.1).to(dev)
+    mask[3] = False
+    up = torch.randn(4, 512, 4, 64, generator=g).to(dev, dtype)
+    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    b = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    launches, recomputes = fa.attention_launches, fa.backward_recomputes
+    out = fa.masked_attention(*a, mask)
+    assert out.grad_fn is not None and fa.attention_launches == launches + 1
+    out.backward(up)
+    fa.masked_attention_plain(*b, mask).backward(up)
+    assert fa.backward_recomputes == recomputes + 1
+    for x, y in zip(a, b):
+        assert torch.equal(x.grad, y.grad)
+
+
 def test_attention_kernel_refuses_what_it_does_not_take(dev):
     q = torch.randn(1, 64, 4, 48, device=dev, dtype=torch.bfloat16)   # Dh 48
     mask = torch.ones(1, 64, dtype=torch.bool, device=dev)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
 chip_smoke.py, profile_port.py, probe_history.py or tests/test_torch_cuda.py)
 imports JAX, Flax, Optax or the JAX package, its shipped codebooks are plain
-arrays, its entry points default to the card, and what it has not ported
-raises naming its slice (the multi-device BA)."""
+arrays, its entry points (the systems, the app, the trainers and the demo)
+default to the card, and what it has not ported raises naming its slice
+(the multi-device BA)."""
 import ast
 import pathlib
 
@@ -175,3 +176,29 @@ def test_app_entry_point_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_euroc.main(["settings.yaml", "mav0"])
+
+
+def test_training_and_tool_modules_are_covered():
+    """The trainers, their data, the checkpoint writer and the tools (A18)
+    are port files this test scans."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("training/__init__.py", "training/data.py", "training/checkpoints.py",
+              "training/superpoint_train.py", "training/lightglue_train.py",
+              "models/weights.py", "utils/profiling.py", "utils/viz.py", "slam/demo.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
+
+
+@pytest.mark.parametrize("entry", ["superpoint_train", "lightglue_train", "demo"])
+def test_trainers_and_demo_default_to_cuda(entry):
+    """Without a card the trainers and the demo raise unless asked for the
+    CPU (tests/test_torch_{superpoint,lightglue}_train.py and
+    tests/test_torch_tools.py run them with device='cpu')."""
+    from rover_slam_tpu_torch.slam import demo
+    from rover_slam_tpu_torch.training import lightglue_train, superpoint_train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    call = {"superpoint_train": lambda: superpoint_train.train(steps=1, pool=1),
+            "lightglue_train": lambda: lightglue_train.train(steps=1, n_pairs=1),
+            "demo": lambda: demo.main(["--frames", "2"])}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
