@@ -57,7 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                calibration), MonocularInertialSLAM(tinit_s=2.0), loop
                closing on with LoopConfig(min_covis_weight=30,
                fix_scale=True). Synchronous twice (one trajectory digest),
-               then pipeline=4 once. Each run must initialize the IMU,
+               then pipeline=4 once over the first G_PIPELINED_FRAMES
+               frames. Each run must initialize the IMU,
                refine frames and run VI-BA after the init and launch B1 and
                B2; the synchronous runs must track >= 90 % of their frames
                and keep the metric ATE (Horn without scale, over the frames
@@ -115,6 +116,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                demo with --trace. Before them, K2's gradient with B1 against
                the same model with the plain attentions swapped in. Gates
                in phase_path_k.
+ 16. path L  — the distributed back end (parallel/), run right after path
+               E on its scene. L2: path E's configuration once more with
+               MonocularSLAM(mesh=make_mesh(8)): the same loop event as
+               path E run 1 and every pose logged before it equal to the
+               bit, then the post-loop global BA landmark-sharded over the
+               8 shards; >= 90 % tracked, ATE under L_ATE_BOUND_CM; the
+               fire frame's and the GBA chunk frames' ms, peak memory. L1:
+               L2's final map as one global problem (the 512 x 1024 padded
+               table) through solve_ba(pcg, phases=1), solve_ba_sharded and
+               solve_ba_sharded_lm on make_mesh(8): both sharded final costs
+               under the initial cost, active keyframes within L_DT_BOUND
+               of the single solve, a second edge-sharded run equal to the
+               bit (the landmark-sharded solve's second run is L3's NCCL
+               process).
+               L3: that problem through an npz into two spawned gloo
+               processes (4 shards each on the card) and one NCCL process
+               (8 shards), solve_ba_multihost both ways: gloo within
+               L_DT_BOUND and L3_COST_RTOL of L1, NCCL equal to L1 to the
+               bit. L4: entry.dryrun_multichip(8) and entry()'s front-end
+               step once. Gates in phase_path_l.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
@@ -161,6 +182,11 @@ BG_TRUE, BA_TRUE = (0.002, -0.001, 0.003), (-0.02, 0.03, 0.01)
 # Metric ATE bound of path G: 2.6x the larger CPU reading of
 # parity_fullwidth.py --inertial --frames 120 (JAX 3.82 cm, port 5.70 cm).
 G_ATE_BOUND_CM = 15.0
+# The pipelined run is gated up to the IMU init (frame 60-64) and loses
+# tracking some 10 frames after it, as the reference does; its frames past
+# 80 were relocalization attempts only, cut to keep the script in its time
+# limit with path L.
+G_PIPELINED_FRAMES = 80
 # Path H: the EuRoC app on path G's scene written as an EuRoC tree.
 H_FRAMES = 120
 H_RESUME_FRAMES = 30
@@ -198,7 +224,7 @@ K_HW = (240, 320)
 K1_POOL, K1_STEPS = 16, 30
 K2_PAIRS, K2_STEPS = 16, 30
 K_TIMED_FROM = 3          # step times: the median over the steps from this one
-K_DEMO_FRAMES = 20
+K_DEMO_FRAMES = 8          # the traced demo, kept short for the script's time limit
 # K2's gradient with B1 against the plain attentions, per parameter tensor.
 K_GRAD_COS = 0.99
 
@@ -658,14 +684,15 @@ class PathA:
         img = synthetic.render_photo_frame(self.world, R, t).astype(np.float32) / 255.0
         return torch.from_numpy(img)[None].to(self.dev)
 
-    def new_slam(self, pipeline=0, loop=False):
-        """loop=True: bench.py's loop closer, LoopConfig(min_covis_weight=30)."""
+    def new_slam(self, pipeline=0, loop=False, mesh=None):
+        """loop=True: bench.py's loop closer, LoopConfig(min_covis_weight=30);
+        mesh: its global BA sharded over the mesh (path L2)."""
         from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
         from rover_slam_tpu_torch.slam.system import MonocularSLAM
         return MonocularSLAM(self.cam, config=self.cfg, map_capacity=(self.K, NK, self.L),
                              desc_dim=D, pipeline=pipeline, enable_loop_closing=loop,
                              loop_config=LoopConfig(min_covis_weight=30) if loop else None,
-                             matcher=self.matcher, device=self.dev)
+                             matcher=self.matcher, mesh=mesh, device=self.dev)
 
     def step_image(self, slam, img, t):
         """One frame through the user's entry points: SuperPoint, unproject,
@@ -868,20 +895,33 @@ def phase_path_b_lifecycle(dev):
 
 
 def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4,
-               loop: bool = False, name: str = "C"):
+               loop: bool = False, name: str = "C", mesh=None, keep_slam: bool = False):
     """bench.py's loop over the scene: a fresh pipeline=4 system, 40 warm-up
     frames, flush, precompile, the timed frames, flush. fps and frame times
     over the timed frames; with count_syncs, the implicit host syncs of the
     timed frames counted by torch.cuda.set_sync_debug_mode("warn") (the
     deferred flags reads, one event wait per frame, are not among them).
     loop=True is path E (bench.py with its loop closer): the result adds
-    flush_ms, the loop events and bench.py's loop_diag."""
+    flush_ms, the loop events, bench.py's loop_diag, the frame that fired
+    the first loop with its ms and the frames that ran a deferred global BA
+    chunk with theirs. mesh: the system's mesh (path L2). Keys that start
+    with "_" are kept out of the log line: the raw per-frame poses logged
+    before the first loop fired (and with keep_slam the system)."""
     n_frames = len(scene.imgs)
     scene.warm_up()
-    slam = scene.new_slam(pipeline=pipeline, loop=loop)
+    slam = scene.new_slam(pipeline=pipeline, loop=loop, mesh=mesh)
+    lc = slam.loop_closer
+    n_traj_before, n_loops_after, pending_after = [], [], []
+
+    def step(i):
+        n_traj_before.append(len(slam.trajectory))
+        scene.step(slam, i)
+        n_loops_after.append(len(slam.loop_events))
+        pending_after.append(lc._gba_pending if lc is not None else 0)
+
     _reset_launches()
     for i in range(n_warm):
-        scene.step(slam, i)
+        step(i)
     slam.flush()
     slam.precompile()
     frame_ms = []
@@ -893,7 +933,7 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4,
             t0 = time.perf_counter()
             for i in range(n_warm, n_frames):
                 t1 = time.perf_counter()
-                scene.step(slam, i)
+                step(i)
                 frame_ms.append((time.perf_counter() - t1) * 1000.0)
             t_fl = time.perf_counter()
             slam.flush()
@@ -921,7 +961,21 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4,
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
     if loop:
         res.update(loop_summary(slam))
-    log(f"# path {name}:", json.dumps(res))
+        fire = next((i for i, n in enumerate(n_loops_after) if n > 0), None)
+        chunks = [i for i in range(1, n_frames)
+                  if fire is not None and i > fire and pending_after[i] < pending_after[i - 1]]
+        res.update({"fire_frame": fire,
+                    "fire_frame_ms": (float(frame_ms[fire - n_warm])
+                                      if fire is not None and fire >= n_warm else None),
+                    "gba_chunk_frames": chunks,
+                    "gba_chunk_ms": [float(frame_ms[i - n_warm]) for i in chunks if i >= n_warm]})
+        n_before = n_traj_before[fire] if fire is not None else len(slam.trajectory)
+        res["_poses_before_fire"] = [
+            (e[0], e[3], torch.as_tensor(e[1]).cpu().numpy(), torch.as_tensor(e[2]).cpu().numpy())
+            for e in slam.trajectory[:n_before]]
+    if keep_slam:
+        res["_slam"] = slam
+    log(f"# path {name}:", json.dumps({k: v for k, v in res.items() if not k.startswith("_")}))
     return res
 
 
@@ -970,6 +1024,272 @@ def phase_path_e(scene):
     if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
         raise AssertionError("path E: two runs gave different trajectories")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Path L: the distributed back end (parallel/sharded_ba.py, multihost.py).
+L_SHARDS = 8              # shards of the in-process mesh (L1, L2, L4)
+L_DT_BOUND = 5e-3         # active keyframes' |dt| against the single solve (tests/test_sharded_ba.py)
+L_ATE_BOUND_CM = 50.0     # L2, as path H's bound
+L_TRACKED_MIN = 0.9
+# L3's gloo run (two processes of 4 shards) against L1's 8 in-process
+# shards: the same solve, summed in another order (4 + 4 shards, then the
+# all_reduce), which LM carries along as the CPU test measures
+# (tests/test_torch_sharded_ba.py: poses within 5e-5, costs within 2.7e-5
+# relative at 10 iterations). Held here to L_DT_BOUND on active keyframes
+# and to L3_COST_RTOL on every cost of the history.
+L3_COST_RTOL = 1e-3
+L3_TIMEOUT_S = 300
+
+
+def _timed(fn, dev):
+    """(result, ms) of fn() between two device synchronizes."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1000.0
+
+
+def _peak_bytes(dev, reset: bool = False):
+    """torch.cuda's peak allocation since the last reset (None on the CPU,
+    where the CPU rehearsal of path L runs)."""
+    if dev.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def initial_cost(prob) -> float:
+    """The robust cost of a BA problem at its initial variables: the first
+    entry of the JAX package's solve_ba cost history."""
+    from rover_slam_tpu_torch.geometry import cameras
+    from rover_slam_tpu_torch.optim import ba, robust
+    e, _, _, _ = ba._edge_terms(cameras.PINHOLE, prob, prob.R_cw, prob.t_cw, prob.lm_pos)
+    chi2 = torch.sum(e * e, dim=-1) * prob.e_info
+    return float(torch.sum(robust.huber_cost(chi2, robust.CHI2_MONO) * prob.e_valid.float()))
+
+
+def _solve_outputs(out) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in zip(("R", "t", "X", "costs"), out)}
+
+
+def run_path_l1(slam, dev) -> tuple:
+    """L1 on the map path L2 ends with: its global problem (the whole padded
+    table) through solve_ba(pcg, phases=1), solve_ba_sharded (twice: the
+    second run must give the same bits) and solve_ba_sharded_lm (once: its
+    second run is L3's NCCL process, held to it to the bit; one run takes
+    ~30 s on the card). Returns (result line, the problem, the sharded
+    outputs)."""
+    from rover_slam_tpu_torch.map import maintenance
+    from rover_slam_tpu_torch.optim import ba
+    from rover_slam_tpu_torch.parallel import sharded_ba
+    mesh = sharded_ba.make_mesh(L_SHARDS, device=dev)
+    prob, _ = maintenance._build_global_problem(slam.state, slam.cam_params)
+    kw = dict(iters=10, cg_iters=25)
+    cost0 = initial_cost(prob)
+    _peak_bytes(dev, reset=True)
+    single, ms_single = _timed(lambda: ba.solve_ba(prob, solver="pcg", phases=1, **kw), dev)
+    mem_single = _peak_bytes(dev)
+    part = sharded_ba.partition_by_landmark(prob, mesh.size)
+    res = {"table_rows": int(prob.e_kf.shape[0]), "live_edges": int(prob.e_valid.sum()),
+           "keyframes": int(prob.pose_opt_mask.sum()), "landmarks": int(prob.lm_opt_mask.sum()),
+           "Ls": -(-prob.lm_pos.shape[0] // mesh.size),
+           "Es": int(part[0].e_kf.shape[0]) // mesh.size,
+           "padded_rows_lm": int(part[0].e_kf.shape[0]),
+           "padded_rows_edges": -(-prob.e_kf.shape[0] // mesh.size) * mesh.size,
+           "cost_initial": cost0, "single_ms": ms_single, "single_peak_bytes": mem_single}
+    del part
+    act = slam.state.kf_active.cpu().numpy()
+    t_single = single.t_cw.cpu().numpy()
+    outs = {}
+    for name, solve in (("edges", sharded_ba.solve_ba_sharded),
+                        ("landmarks", sharded_ba.solve_ba_sharded_lm)):
+        _peak_bytes(dev, reset=True)
+        a, ms_a = _timed(lambda: solve(prob, mesh, **kw), dev)
+        peak = _peak_bytes(dev)
+        o = _solve_outputs(a)
+        outs[name] = o
+        res[name] = {"ms": [ms_a], "peak_bytes": peak,
+                     "cost_first": float(o["costs"][0]), "cost_final": float(o["costs"][-1]),
+                     "max_dt_vs_single": float(np.abs(o["t"] - t_single)[act].max())}
+        if name == "edges":
+            b, ms_b = _timed(lambda: solve(prob, mesh, **kw), dev)
+            res[name]["ms"].append(ms_b)
+            res[name]["repeat_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    log("# path L1:", json.dumps(res))
+    for name in ("edges", "landmarks"):
+        r = res[name]
+        if not (r["cost_final"] < cost0 and r["max_dt_vs_single"] < L_DT_BOUND
+                and r.get("repeat_equal", True)):
+            raise AssertionError(f"path L1 {name}: {r} (initial cost {cost0})")
+    return res, prob, outs
+
+
+def l3_worker(pid: int, nproc: int, port: int, backend: str, n_local: int, device: str,
+              src: str, out: str):
+    """One process of L3: joins the group, solves the npz's problem with
+    solve_ba_multihost (edge-sharded, then landmark-sharded) on n_local
+    shards of `device`, and (process 0) writes the outputs."""
+    import torch.distributed as dist
+    from rover_slam_tpu_torch.optim import ba
+    from rover_slam_tpu_torch.parallel import multihost
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend)
+    try:
+        with np.load(src) as z:
+            prob = ba.BAProblem(**{k: torch.from_numpy(z[k]) for k in z.files})
+        mesh = multihost.global_mesh(n_local, device=dev)
+        res = {"mesh_size": mesh.size}
+        for name, lm in (("edges", False), ("landmarks", True)):
+            o, ms = _timed(lambda: multihost.solve_ba_multihost(prob, mesh, lm_sharded=lm,
+                                                                iters=10, cg_iters=25), dev)
+            res.update({f"{name}_{k}": v for k, v in _solve_outputs(o).items()})
+            res[f"{name}_ms"] = ms
+        if pid == 0:
+            np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_workers(tmp: str, prob_npz: str, backend: str, nproc: int, n_local: int,
+                   device: str):
+    """nproc spawned l3_worker processes on one process group; returns
+    (processes, process 0's output file)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = os.path.join(tmp, f"l3_{backend}_{nproc}.npz")
+    port = _free_port()
+    procs = [ctx.Process(target=l3_worker, args=(pid, nproc, port, backend, n_local, device,
+                                                 prob_npz, out)) for pid in range(nproc)]
+    for p in procs:
+        p.start()
+    return procs, out
+
+
+def _join_workers(runs: dict) -> dict:
+    """Join every worker with one deadline (L3_TIMEOUT_S), kill any still
+    running on expiry, and read process 0's outputs of each run."""
+    t0 = time.perf_counter()
+    procs = [p for ps, _ in runs.values() for p in ps]
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, L3_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = {name: [p.exitcode for p in ps] for name, (ps, _) in runs.items()}
+    if any(c != 0 for cs in codes.values() for c in cs):
+        raise AssertionError(f"path L3: worker exit codes {codes}")
+    res = {}
+    for name, (_, out) in runs.items():
+        with np.load(out) as z:
+            res[name] = {k: z[k] for k in z.files}
+    return res
+
+
+def run_path_l3(prob, l1_outs, act, device: str) -> dict:
+    """L3: L1's problem to an npz; two gloo processes of 4 shards on the
+    card, held to L1's 8-shard results within L_DT_BOUND and L3_COST_RTOL,
+    and at the same time one NCCL process of 8 shards, held to them to the
+    bit. The three processes share the card, so their solve times are not
+    the solver's alone."""
+    res = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="path_l3_") as tmp:
+        src = os.path.join(tmp, "problem.npz")
+        np.savez(src, **{k: v.cpu().numpy() for k, v in prob._asdict().items()
+                         if isinstance(v, torch.Tensor)})
+        runs = _join_workers({
+            "gloo 2x4": _start_workers(tmp, src, "gloo", 2, L_SHARDS // 2, device),
+            "nccl 1x8": _start_workers(tmp, src, "nccl", 1, L_SHARDS, device)})
+    res["s"] = time.perf_counter() - t0
+    for run, r in runs.items():
+        res[run] = {"mesh_size": int(r["mesh_size"])}
+        for name in ("edges", "landmarks"):
+            ref = l1_outs[name]
+            got = {k: r[f"{name}_{k}"] for k in ("R", "t", "X", "costs")}
+            res[run][name] = {
+                "ms": float(r[f"{name}_ms"]),
+                "max_dt": float(np.abs(got["t"] - ref["t"])[act].max()),
+                "max_cost_rel": float(np.max(np.abs(got["costs"] - ref["costs"])
+                                             / np.abs(ref["costs"]))),
+                "bit_equal": all(np.array_equal(got[k], ref[k]) for k in got)}
+    log("# path L3:", json.dumps(res))
+    for name in ("edges", "landmarks"):
+        g = res["gloo 2x4"][name]
+        if not (g["max_dt"] < L_DT_BOUND and g["max_cost_rel"] < L3_COST_RTOL):
+            raise AssertionError(f"path L3 gloo {name}: {g}")
+        if not res["nccl 1x8"][name]["bit_equal"]:
+            raise AssertionError(f"path L3 nccl {name}: {res['nccl 1x8'][name]}")
+    return res
+
+
+def phase_path_l(scene, e_run1, dev):
+    """Path L (A17, the distributed back end). L2: path E's run once more
+    with MonocularSLAM(mesh=make_mesh(L_SHARDS)): the loop event of path E
+    run 1, every pose logged before it equal to run 1's to the bit, >=
+    L_TRACKED_MIN tracked, ATE under L_ATE_BOUND_CM. L1: map-scale solver
+    parity on L2's final map (run_path_l1). L3: two processes over gloo and
+    one over NCCL (run_path_l3). L4: entry.dryrun_multichip(L_SHARDS) and
+    entry()'s front-end step once."""
+    from rover_slam_tpu_torch import entry
+    from rover_slam_tpu_torch.parallel import sharded_ba
+    t_l = time.perf_counter()
+    _peak_bytes(dev, reset=True)
+    l2 = run_path_c(scene, count_syncs=False, loop=True, name="L2",
+                    mesh=sharded_ba.make_mesh(L_SHARDS, device=dev), keep_slam=True)
+    l2["peak_bytes"] = _peak_bytes(dev)
+    slam = l2.pop("_slam")
+    ev, ev_e = l2["loop_events"], e_run1["loop_events"]
+    keys = ("kf", "query_kf", "candidate", "n_inliers", "scale")
+    same_loop = bool(ev) and bool(ev_e) and all(ev[0][k] == ev_e[0][k] for k in keys)
+    a, b = l2.pop("_poses_before_fire"), e_run1["_poses_before_fire"]
+    poses_equal = len(a) == len(b) and all(
+        x[0] == y[0] and x[1] == y[1] and np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3])
+        for x, y in zip(a, b))
+    check = {"same_loop": same_loop, "poses_before_fire": len(a),
+             "poses_before_fire_equal": poses_equal, "peak_bytes": l2["peak_bytes"],
+             "fire_frame": l2["fire_frame"], "fire_frame_e": e_run1["fire_frame"]}
+    log("# path L2 checks:", json.dumps(check))
+    if not (same_loop and poses_equal and len(a) > 0):
+        raise AssertionError(f"path L2: {check}; loops {ev[:1]} vs path E {ev_e[:1]}")
+    if not (l2["frac_tracked"] >= L_TRACKED_MIN and l2["ate_cm"] < L_ATE_BOUND_CM):
+        raise AssertionError(f"path L2 tracked {l2['frac_tracked']:.2f}, ATE {l2['ate_cm']}")
+    l1, prob, outs = run_path_l1(slam, dev)
+    act = slam.state.kf_active.cpu().numpy()
+    del slam
+    l3 = run_path_l3(prob, outs, act, str(dev))
+    del prob
+
+    _reset_launches()
+    dry, ms_dry = _timed(lambda: entry.dryrun_multichip(L_SHARDS, device=dev), dev)
+    fn, args = entry.entry(device=dev)
+    (m, sc, kp), ms_fn = _timed(lambda: fn(*args), dev)
+    l4 = {"dryrun_ms": ms_dry, "entry_ms": ms_fn, "dryrun_costs": dry["edges"][3].tolist(),
+          "entry_shapes": [list(m.shape), list(kp.shape)], "launches": _launches()}
+    log("# path L4:", json.dumps(l4))
+    if not (m.shape == (1, entry.ENTRY_KPTS) and bool(torch.isfinite(sc).all())
+            and bool(torch.isfinite(kp).all())):
+        raise AssertionError(f"path L4: {l4}")
+    launches = {k: l2["launches"][k] + l4["launches"][k] for k in ("attention", "nn")}
+    res = {"L1": l1, "L2": l2, "L2_checks": check, "L3": l3, "L4": l4, "launches": launches,
+           "s": time.perf_counter() - t_l, "card": card()}
+    log(f"# path L: {res['s']:.1f} s, launches {json.dumps(launches)}")
+    return res
 
 
 def _ring_frames(n_frames, revs, seed=0):
@@ -1128,12 +1448,12 @@ def metric_ate_cm(slam, scene, after: float):
             trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0)
 
 
-def run_path_g(scene, pipeline: int, count_syncs: bool):
-    """Every frame through a fresh MonocularInertialSLAM (its IMU samples
-    fed before it), then flush; the result line with the launches counted
-    from 0 over the run."""
+def run_path_g(scene, pipeline: int, count_syncs: bool, n_frames: int | None = None):
+    """The first n_frames (None: every frame) through a fresh
+    MonocularInertialSLAM (its IMU samples fed before each), then flush; the
+    result line with the launches counted from 0 over the run."""
     from rover_slam_tpu_torch.slam import tracking as T
-    n_frames = len(scene.imgs)
+    n_frames = n_frames or len(scene.imgs)
     scene.warm_up()
     slam = scene.new_slam(pipeline=pipeline)
     _reset_launches()
@@ -1200,9 +1520,9 @@ def phase_path_g(scene):
     this scene (75 of 120 frames tracked on the CPU, parity_fullwidth.py
     --inertial --pipeline 4; ROADMAP.md section C), so the pipelined run
     must track >= 90 % of the frames up to the init and its tracking after
-    it is reported, not gated."""
+    it is reported, not gated; it runs the first G_PIPELINED_FRAMES."""
     runs = [run_path_g(scene, 0, count_syncs=True), run_path_g(scene, 0, count_syncs=False),
-            run_path_g(scene, 4, count_syncs=False)]
+            run_path_g(scene, 4, count_syncs=False, n_frames=G_PIPELINED_FRAMES)]
     for r in runs:
         name = f"path G (pipeline={r['pipeline']})"
         if r["imu_ready_frame"] is None:
@@ -2118,36 +2438,57 @@ def main():
     import rover_slam_tpu_torch  # noqa: F401  (fails outside the repo)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     log(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
     attn_err, nn_err = phase_parity(dev)
     timing = phase_timing(dev)
+    mark("build, parity, timing")
     scene_a = PathA(dev, n_frames=80)
     phase_lightglue(scene_a)
     paths = {"A": phase_path_a(scene_a)}
     del scene_a
+    mark("lightglue, A")
     paths["B"] = phase_path_b(dev)
     paths["B kidnap"] = phase_path_b_kidnap(dev)
     paths["B lifecycle"] = phase_path_b_lifecycle(dev)
+    mark("B")
     scene_c = PathA(dev, n_frames=160)
     paths["C"] = phase_path_c(scene_c)
+    mark("C")
     paths["D"] = phase_path_d(scene_c)
+    mark("D")
     paths["E run 1"], paths["E run 2"] = phase_path_e(scene_c)
+    mark("E")
+    paths["L"] = phase_path_l(scene_c, paths["E run 1"], dev)
+    mark("L")
     del scene_c
     paths.update(phase_path_f(dev))
+    mark("F")
     scene_g = PathG(dev)
     paths["G sync run 1"], paths["G sync run 2"], paths["G pipeline=4"] = phase_path_g(scene_g)
     del scene_g
+    mark("G")
     with tempfile.TemporaryDirectory(prefix="path_h_") as tmp_root:
         paths["H"] = phase_path_h(tmp_root)
+    mark("H")
     scene_i = PathI(dev, n_frames=160)
     paths["I"], paths["I RGBD"] = phase_path_i(scene_i)
     del scene_i
+    mark("I")
     with tempfile.TemporaryDirectory(prefix="path_j_") as tmp_root:
         paths["J1"], paths["J2"] = phase_path_j(tmp_root)
+    mark("J")
     with tempfile.TemporaryDirectory(prefix="path_k_") as tmp_root:
         paths["K"] = phase_path_k(tmp_root)
+    mark("K")
+    log("# seconds by phase:", json.dumps({name: round(t - marks[i][1], 1)
+                                           for i, (name, t) in enumerate(marks[1:])}))
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

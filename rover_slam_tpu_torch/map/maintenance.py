@@ -2,8 +2,9 @@
 visibility statistics, exact observation counts, landmark culling, keyframe
 culling and the global bundle adjustment.
 
-Counterpart of rover_slam_tpu/map/maintenance.py. The multi-device global BA
-(mesh=) comes with the multi-device slice.
+Counterpart of rover_slam_tpu/map/maintenance.py. With a mesh of more than
+one shard the global BA runs the landmark-sharded distributed solver
+(parallel/sharded_ba.py).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from ..geometry import cameras
 from ..ops import association as assoc
 from ..ops import scatterless
 from ..optim import ba
+from ..parallel import sharded_ba
 from . import map_state as ms
 
 
@@ -318,11 +320,17 @@ def global_ba(state: ms.MapState, cam_params, cam_kind: int = cameras.PINHOLE,
     """Full-map bundle adjustment (reference GlobalBundleAdjustemnt after a
     loop closure): LM with the PCG solver over every active keyframe and
     landmark, at the compaction level `level` of GBA_LEVELS (None: the whole
-    padded edge table); bf adds the stereo rows."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "The landmark-sharded global BA (mesh=) is not ported yet: it comes "
-            "with the multi-device (A17) slice of the PyTorch port (see ROADMAP.md)")
+    padded edge table); bf adds the stereo rows.
+
+    mesh: a parallel.sharded_ba.Mesh; with more than one shard the solve is
+    solve_ba_sharded_lm on the whole padded table (landmark math
+    shard-local, only the pose vector crosses shards), as in the JAX
+    package: `level` and bf are not used, and no outlier is dropped."""
+    if mesh is not None and mesh.size > 1:
+        prob, _ = _build_global_problem(state, cam_params)
+        R, t, lm_pos, _ = sharded_ba.solve_ba_sharded_lm(prob, mesh, cam_kind=cam_kind,
+                                                         iters=iters, cg_iters=25)
+        return state.replace(kf_R_cw=R, kf_t_cw=t, lm_pos=lm_pos[:state.L])
     e_cap = lm_cap = None
     if level is not None:
         e_cap, lm_cap = GBA_LEVELS[min(level, len(GBA_LEVELS) - 1)]

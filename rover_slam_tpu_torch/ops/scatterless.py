@@ -49,6 +49,41 @@ def seg_sum(plan: SegmentPlan, vals: torch.Tensor) -> torch.Tensor:
                                 axis=0, unsafe=True)
 
 
+class ChunkedPlan(NamedTuple):
+    """A SegmentPlan whose segments are cut into chunks of at most `chunk`
+    sorted entries: chunk c holds sorted positions [chunk_offsets[c],
+    chunk_offsets[c + 1]), and segment s chunks [seg_chunks[s],
+    seg_chunks[s + 1])."""
+    order: torch.Tensor
+    chunk_offsets: torch.Tensor
+    seg_chunks: torch.Tensor
+
+
+def chunked_plan(idx: torch.Tensor, size: int, chunk: int) -> ChunkedPlan:
+    """The plan of `seg_sum_chunked`. One host read (the number of chunks)."""
+    plan = segment_plan(idx, size)
+    off = plan.offsets
+    n_chunks = (off[1:] - off[:-1] + chunk - 1) // chunk
+    cum = torch.cumsum(n_chunks, 0)
+    total = int(cum[-1]) if size else 0
+    c = torch.arange(total, device=idx.device)
+    seg = torch.searchsorted(cum, c, right=True)
+    starts = off[seg] + (c - (cum[seg] - n_chunks[seg])) * chunk
+    return ChunkedPlan(plan.order, torch.cat([starts, off[-1:]]),
+                       torch.cat([cum.new_zeros(1), cum]))
+
+
+def seg_sum_chunked(plan: ChunkedPlan, vals: torch.Tensor) -> torch.Tensor:
+    """seg_sum with each segment summed chunk by chunk in entry order, then
+    its chunk sums in order: the same fixed order on every run. A long
+    segment then costs one short sum per chunk instead of one long serial
+    one (torch.segment_reduce sums a segment serially on the card); a
+    segment of at most `chunk` entries sums exactly as in seg_sum."""
+    part = torch.segment_reduce(vals[plan.order], "sum", offsets=plan.chunk_offsets,
+                                axis=0, unsafe=True)
+    return torch.segment_reduce(part, "sum", offsets=plan.seg_chunks, axis=0, unsafe=True)
+
+
 def seg_add(idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
     """Segment-sum vals [N, ...] by idx [N] into [size, ...]."""
     return seg_sum(segment_plan(idx, size), vals)

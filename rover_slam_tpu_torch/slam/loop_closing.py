@@ -14,8 +14,7 @@ seeded like the JAX package's PRNGKey; the parity tests hand in the JAX
 package's own draws (`samples`). With `use_4dof` (set by the inertial
 system) loop corrections run the 4-DoF pose graph. With `bf` (set by the
 stereo systems) the welding and global BAs carry the stereo residual rows.
-The multi-device (`mesh`) variant raises NotImplementedError naming its
-slice.
+With a mesh the post-loop global BA runs landmark-sharded over it.
 """
 from __future__ import annotations
 
@@ -36,12 +35,6 @@ from ..ops import scatterless
 from ..optim import pose_graph, sim3_solver
 from .host_copy import HostCopy
 from .tracking import _local_ba_body
-
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice of the "
-        "PyTorch port (see ROADMAP.md)")
 
 
 @dataclass
@@ -504,9 +497,10 @@ class LoopCloser:
         """matcher: optional learned matcher (LightGlueFrameMatcher) for the
         fire-time keyframe matches, and with learned_verify_matches for the
         verification batch; None = mutual NN only. device None: the device
-        of cam_params if it is a tensor, else cuda."""
-        if mesh is not None:
-            raise _later("The landmark-sharded post-loop global BA (mesh=)", "multi-device (A17)")
+        of cam_params if it is a tensor, else cuda. mesh: an optional
+        parallel.sharded_ba.Mesh; the post-loop global BA then runs
+        landmark-sharded over it (maintenance.global_ba)."""
+        self.mesh = mesh
         if isinstance(cam_params, torch.Tensor):
             device = cam_params.device if device is None else device
         else:
@@ -590,7 +584,7 @@ class LoopCloser:
                              cfg.pose_graph_iters, mode=self.pose_graph_mode)
         _fuse_after_loop_kernel(state, 0, 0, self.cam_params, cfg.cam_kind)
         if cfg.run_gba:
-            if cfg.gba_chunk_iters > 0:
+            if cfg.gba_chunk_iters > 0 and self.mesh is None:
                 lvl = maintenance.gba_level_for(maintenance.count_global_edges(state))
                 for lv in sorted({lvl, min(lvl + 1, len(maintenance.GBA_LEVELS) - 1)}):
                     maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
@@ -598,7 +592,8 @@ class LoopCloser:
                                           bf=self._bf_arr())
             else:
                 maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                      iters=cfg.gba_iters, bf=self._bf_arr())
+                                      iters=cfg.gba_chunk_iters or cfg.gba_iters,
+                                      mesh=self.mesh, bf=self._bf_arr())
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -609,7 +604,7 @@ class LoopCloser:
             self._gba_level = maintenance.gba_level_for(maintenance.count_global_edges(state))
         return maintenance.global_ba(state, self.cam_params, cam_kind=self.cfg.cam_kind,
                                      iters=self.cfg.gba_chunk_iters, level=self._gba_level,
-                                     bf=self._bf_arr())
+                                     mesh=self.mesh, bf=self._bf_arr())
 
     def _kf_matches(self, state: ms.MapState, kf_q: int, kf_c: int):
         """Learned keyframe <-> keyframe matches (B1 at B=1), or None."""
@@ -845,7 +840,8 @@ class LoopCloser:
                 self._gba_pending = max(-(-cfg.gba_iters // cfg.gba_chunk_iters) - 1, 0)
             else:
                 state = maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                              iters=cfg.gba_iters, bf=self._bf_arr())
+                                              iters=cfg.gba_iters, mesh=self.mesh,
+                                              bf=self._bf_arr())
         info = {"loop": True, "candidate": cand, "query_kf": kf_id, "n_inliers": n_inl,
                 "scale": float(s), "n_fused": int(n_fused), "pg_cost": float(costs[-1])}
         self.loops_closed.append((kf_id, cand))

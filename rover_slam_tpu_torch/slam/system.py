@@ -13,8 +13,8 @@ whole finish, its keyframe decision and insert included. The hooks
 and `_on_compaction` are where the JAX package calls them. Keyframe slots
 carry host-side uids so that culling and compaction, which recycle slots,
 keep the trajectory whole. With enable_loop_closing every keyframe goes through the loop closer
-(`slam/loop_closing.py`) and every finished frame polls it. The multi-device
-BA raises NotImplementedError naming its slice.
+(`slam/loop_closing.py`) and every finished frame polls it; with a mesh its
+post-loop global BA runs sharded (parallel/sharded_ba.py).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from ..ops import _build
 from ..utils.timing import StageTimers
 from . import tracking as T
 from .host_copy import HostCopy
-from .loop_closing import LoopCloser, _later
+from .loop_closing import LoopCloser
 
 
 class MonocularSLAM:
@@ -61,9 +61,10 @@ class MonocularSLAM:
 
         The RANSAC draws (init, relocalization) come from a torch.Generator
         seeded with 7 (the JAX package's PRNGKey(7)). device None means
-        cuda."""
-        if mesh is not None:
-            raise _later("Multi-device map-scale BA (mesh=)", "multi-device (A17)")
+        cuda.
+
+        mesh: a parallel.sharded_ba.Mesh; the loop closer's global BA then
+        shards over it (landmark-sharded, map scale)."""
         self.device = resolve_device(device)
         self.cfg = config or T.TrackerConfig()
         self.matcher = matcher
@@ -82,9 +83,10 @@ class MonocularSLAM:
         K, N, L = map_capacity
         self.state = ms.empty_map(K=K, N=N, L=L, D=desc_dim, device=self.device)
         self.loop_closer = None
+        self.mesh = mesh
         if enable_loop_closing:
             self.loop_closer = LoopCloser(self.cam_params, K, desc_dim, config=loop_config,
-                                          matcher=matcher, device=self.device)
+                                          matcher=matcher, mesh=mesh, device=self.device)
         self.loop_events = []         # (query kf, info) of every fired loop
         self.tracking_state = T.NO_IMAGES_YET
         self.velocity = None

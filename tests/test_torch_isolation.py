@@ -1,9 +1,9 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
-chip_smoke.py, profile_port.py, probe_history.py or tests/test_torch_cuda.py)
-imports JAX, Flax, Optax or the JAX package, its shipped codebooks are plain
-arrays, its entry points (the systems, the app, the trainers and the demo)
-default to the card, and what it has not ported raises naming its slice
-(the multi-device BA)."""
+chip_smoke.py, profile_port.py, probe_history.py, tests/test_torch_cuda.py
+or tests/torch_multihost_worker.py) imports JAX, Flax, Optax or the JAX
+package, its shipped codebooks are plain arrays, its entry points (the
+systems, the app, the trainers, the demo, entry.py and the meshes) default
+to the card, and the multi-device options (mesh=) are taken."""
 import ast
 import pathlib
 
@@ -13,6 +13,7 @@ import torch
 
 from rover_slam_tpu_torch.imu import preintegration
 from rover_slam_tpu_torch.map import keyframe_database, maintenance
+from rover_slam_tpu_torch.parallel import multihost, sharded_ba
 from rover_slam_tpu_torch.slam.inertial_system import MonocularInertialSLAM
 from rover_slam_tpu_torch.slam.loop_closing import LoopCloser, LoopConfig
 from rover_slam_tpu_torch.slam.system import MonocularSLAM
@@ -26,7 +27,7 @@ CAM = np.asarray([458.0, 458.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
 def _port_files():
     files = sorted((ROOT / "rover_slam_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_port.py", ROOT / "probe_history.py",
-        ROOT / "tests" / "test_torch_cuda.py"]
+        ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "torch_multihost_worker.py"]
     assert len(files) > 20
     return files
 
@@ -80,28 +81,62 @@ def test_entry_points_default_to_cuda():
     assert MonocularSLAM(CAM, device="cpu").state.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object(), enable_loop_closing=True),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict()])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        MonocularSLAM(CAM, device="cpu", **kw)
+    """Named for when mesh= (multi-device, A17) raised here: it is ported,
+    and MonocularSLAM keeps the mesh and hands it to its loop closer."""
+    mesh = sharded_ba.make_mesh(2, device="cpu")
+    slam = MonocularSLAM(CAM, device="cpu", mesh=mesh, **kw)
+    assert slam.mesh is mesh
+    if kw:
+        assert slam.loop_closer.mesh is mesh
+    else:
+        assert slam.loop_closer is None
 
 
 def test_loop_path_variants_raise():
-    """mesh= (multi-device, A17) raises on the loop path; stereo bf (A16
-    steps a-c) is taken, as a float32 scalar on the closer's device (its
-    parity: tests/test_torch_stereo.py::test_loop_closer_welding_ba_with_bf)."""
-    with pytest.raises(NotImplementedError, match="A17"):
-        LoopCloser(CAM, 8, 64, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A17"):
-        MonocularSLAM(CAM, device="cpu", mesh=object())
+    """Named for when mesh= raised on the loop path: the loop closer keeps
+    the mesh and global_ba(mesh=) runs (on an empty map: no live edge, so
+    nothing moves); stereo bf (A16 steps a-c) is taken, as a float32 scalar
+    on the closer's device (its parity:
+    tests/test_torch_stereo.py::test_loop_closer_welding_ba_with_bf)."""
+    mesh = sharded_ba.make_mesh(2, device="cpu")
+    assert LoopCloser(CAM, 8, 64, device="cpu", mesh=mesh).mesh is mesh
+    assert MonocularSLAM(CAM, device="cpu", mesh=mesh).mesh is mesh
     lc = LoopCloser(CAM, 8, 64, config=LoopConfig(), device="cpu")
+    assert lc.mesh is None
     assert lc.bf is None and lc._bf_arr() is None and lc.pose_graph_mode == "sim3"
     lc.bf = 400.0
     assert lc._bf_arr().dtype == torch.float32 and float(lc._bf_arr()) == 400.0
     slam = MonocularSLAM(CAM, device="cpu", map_capacity=(8, 16, 64))
-    with pytest.raises(NotImplementedError, match="A17"):
-        maintenance.global_ba(slam.state, slam.cam_params, mesh=object())
+    out = maintenance.global_ba(slam.state, slam.cam_params, iters=1, mesh=mesh)
+    for f in ("kf_R_cw", "kf_t_cw", "lm_pos", "kf_landmark_idx"):
+        assert torch.equal(getattr(out, f), getattr(slam.state, f)), f
+
+
+def test_parallel_modules_are_covered():
+    """The distributed back end (A17) and entry.py are port files this test
+    scans."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for m in ("parallel/__init__.py", "parallel/sharded_ba.py", "parallel/multihost.py",
+              "entry.py"):
+        assert "rover_slam_tpu_torch/" + m in names, m
+    assert "tests/torch_multihost_worker.py" in names
+
+
+def test_meshes_and_entry_default_to_cuda():
+    """make_mesh, global_mesh, entry() and dryrun_multichip run on the card
+    unless asked for the CPU."""
+    from rover_slam_tpu_torch import entry
+    if torch.cuda.is_available():
+        assert sharded_ba.make_mesh(2).device.type == "cuda"
+        return
+    for call in (lambda: sharded_ba.make_mesh(2), lambda: multihost.global_mesh(2),
+                 lambda: entry.entry(), lambda: entry.dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    mesh = sharded_ba.make_mesh(3, device="cpu")
+    assert (mesh.device.type, mesh.size, mesh.n_local, mesh.rank_offset) == ("cpu", 3, 3, 0)
 
 
 @pytest.mark.parametrize("kw", [dict(pipeline=4), dict(pipeline=True),

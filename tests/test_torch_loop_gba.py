@@ -93,9 +93,20 @@ def test_global_ba_levels(scene, level):
 
 
 def test_global_ba_mesh_raises(scene):
+    """Named for when global_ba(mesh=) raised (A17): it now runs the
+    landmark-sharded solver over the whole padded table, drops no outlier,
+    and lands within 5e-3 of the single-device path on active keyframes
+    (tests/test_sharded_ba.py's bound; its parity with the JAX package:
+    tests/test_torch_sharded_gba.py)."""
+    from rover_slam_tpu_torch.parallel import sharded_ba
     st, _ = scene
-    with pytest.raises(NotImplementedError, match="A17"):
-        tmnt.global_ba(st, torch.from_numpy(CAM), mesh=object())
+    cam = torch.from_numpy(CAM)
+    out = tmnt.global_ba(st, cam, iters=1, mesh=sharded_ba.make_mesh(2, device="cpu"))
+    ref = tmnt.global_ba(st, cam, iters=1)
+    assert torch.equal(out.kf_landmark_idx, st.kf_landmark_idx)
+    act = st.kf_active.numpy()
+    assert np.isfinite(out.lm_pos.numpy()).all()
+    assert np.abs(out.kf_t_cw.numpy() - ref.kf_t_cw.numpy())[act].max() < 5e-3
 
 
 # --------------------------------------------------------------------------
