@@ -35,7 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                four frames on which tracking fails, then frames 20 onward
                again: tracking must go RECENTLY_LOST and come back OK through
                relocalization (B1 at B=3 over the newest keyframes).
-  9. path E  — bench.py's full configuration: path C with loop closing on
+  9. path E  — bench.py's full configuration, bench_port.py's loop (the
+               twin of bench.py, whose scene, loop and digest this path
+               imports): path C with loop closing on
                (LoopConfig(min_covis_weight=30): place recognition, Sim3
                verification with B2 at 1024 x 1024 x 256 per candidate, the
                fire-time LightGlue match, essential-graph correction, chunked
@@ -154,9 +156,12 @@ import warnings
 import numpy as np
 import torch
 
-H, W, NK, D = 480, 640, 1024, 256
-RELOC_L = 16384          # landmark table of the bench map (global relocalization)
-LIGHTGLUE_LAYERS = 9
+# The bench scene and loop (paths A, C, D, E and L2) live in bench_port.py,
+# the port's headline benchmark: one copy of the loop for both scripts.
+from bench_port import (D, H, LIGHTGLUE_LAYERS, NK, RELOC_L, W, PathA, _ate_cm,
+                        _launches, _reset_launches, _sync, _tracked, card, log, loop_summary,
+                        run_path_c, trajectory_digest)
+
 # Published H100 SXM peaks (bf16 dense tensor rate, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -241,10 +246,6 @@ def masked_attention_f32p(q, k, v, mask_kv):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def log(*a):
-    print(*a, flush=True)
-
-
 def cuda_time_ms(fn, calls: int = 20, replays: int = 10, readings: int = 5) -> float:
     """Device time of one call of fn, by CUDA-graph replay: after a warm-up on
     a side stream, `calls` calls are captured into one graph; each reading
@@ -275,11 +276,6 @@ def cuda_time_ms(fn, calls: int = 20, replays: int = 10, readings: int = 5) -> f
         times.append(e0.elapsed_time(e1) / (replays * calls))
     del graph
     return float(np.median(times))
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -594,134 +590,6 @@ def phase_timing(dev):
 
 
 # ---------------------------------------------------------------------------
-def trajectory_digest(slam) -> str:
-    """sha256 of the final trajectory's times and poses: two runs that agree
-    to the bit give the same digest."""
-    import hashlib
-    h = hashlib.sha256()
-    for a in slam.get_trajectory():
-        h.update(np.ascontiguousarray(a).tobytes())
-    return h.hexdigest()[:16]
-
-
-def _ate_cm(slam, R_gt, t_gt, times):
-    from rover_slam_tpu_torch.utils import trajectory
-    est_t, est_R, est_tcw = slam.get_trajectory()
-    if len(est_t) == 0:
-        return float("nan"), []
-    est_pos = np.stack([-est_R[i].T @ est_tcw[i] for i in range(len(est_t))])
-    fin = np.isfinite(est_pos).all(axis=1)
-    gt_pos = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(times))])
-    pairs = [(i, j) for i, j in trajectory.associate_by_time(est_t, times) if fin[i]]
-    if len(pairs) < 3:
-        return float("nan"), pairs
-    e = np.stack([est_pos[i] for i, _ in pairs])
-    g = np.stack([gt_pos[j] for _, j in pairs])
-    return trajectory.ate_rmse(e, g, with_scale=True)[0] * 100.0, pairs
-
-
-def _reset_launches():
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
-    fa.attention_launches = 0
-    fa.launches_by_batch.clear()
-    fa.backward_recomputes = 0
-    nm.nn_launches = 0
-    nm.launches_by_shape.clear()
-
-
-def _launches() -> dict:
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
-    return {"attention": fa.attention_launches, "nn": nm.nn_launches,
-            "attention_backward": fa.backward_recomputes,
-            "attention_by_batch": dict(fa.launches_by_batch),
-            "nn_by_shape": dict(nm.launches_by_shape)}
-
-
-class PathA:
-    """The bench scene at full width (bench.py's configuration with loop
-    closing off), cut to n_frames at the bench's per-frame motion: the scene,
-    the shipped-weight front end, and a factory for fresh SLAM systems."""
-    K, L = 512, RELOC_L
-
-    def __init__(self, dev, n_frames: int, gt=None):
-        """gt: (R_cw, t_cw, times) of the frames; None = the bench orbit."""
-        from rover_slam_tpu_torch.models.lightglue import (LightGlueFrameMatcher,
-                                                           LightGlueMatcher)
-        from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor
-        from rover_slam_tpu_torch.models.weights import load_flat_npz
-        from rover_slam_tpu_torch.slam import tracking as T
-        from rover_slam_tpu_torch.utils import synthetic
-
-        self.dev = dev
-        fx = 458.0
-        self.cam = np.asarray([fx, fx, W / 2.0, H / 2.0, 0, 0, 0, 0], np.float32)
-        self.world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0,
-                                                image_hw=(H, W), layout="ring",
-                                                ring_orbit_radius=5.0)
-        self.world = self.world._replace(cam_params=self.cam)
-        # bench.py orbits 1.1 revolutions over 160 frames; keep its per-frame
-        # motion over the cut sequence.
-        self.R_gt, self.t_gt, self.times = gt if gt is not None else \
-            synthetic.orbit_trajectory(n_frames=n_frames, orbit_radius=5.0,
-                                       revs=1.1 * n_frames / 160.0, dt=1.0 / 30.0)
-        t_r = time.perf_counter()
-        self.imgs = [self.render(self.R_gt[i], self.t_gt[i]) for i in range(n_frames)]
-        log(f"# scene: rendered {n_frames} frames in {time.perf_counter() - t_r:.1f} s")
-        assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "rover_slam_tpu", "assets")
-        sp = load_flat_npz(os.path.join(assets, "superpoint_synth.npz"))
-        lg = load_flat_npz(os.path.join(assets, "lightglue_synth.npz"))
-        self.ext = SuperPointExtractor(params=sp, max_keypoints=NK, device=dev)
-        self.matcher = LightGlueFrameMatcher(
-            LightGlueMatcher(params=lg, num_layers=LIGHTGLUE_LAYERS, threshold=0.1,
-                             device=dev), (H, W))
-        self.cfg = T.TrackerConfig(image_hw=(H, W), local_map_only=True, kf_cull_every=0,
-                                   min_init_matches=40, min_inliers_local_map=20)
-        self.camt = torch.as_tensor(self.cam, device=dev)
-
-    def render(self, R, t):
-        from rover_slam_tpu_torch.utils import synthetic
-        img = synthetic.render_photo_frame(self.world, R, t).astype(np.float32) / 255.0
-        return torch.from_numpy(img)[None].to(self.dev)
-
-    def new_slam(self, pipeline=0, loop=False, mesh=None):
-        """loop=True: bench.py's loop closer, LoopConfig(min_covis_weight=30);
-        mesh: its global BA sharded over the mesh (path L2)."""
-        from rover_slam_tpu_torch.slam.loop_closing import LoopConfig
-        from rover_slam_tpu_torch.slam.system import MonocularSLAM
-        return MonocularSLAM(self.cam, config=self.cfg, map_capacity=(self.K, NK, self.L),
-                             desc_dim=D, pipeline=pipeline, enable_loop_closing=loop,
-                             loop_config=LoopConfig(min_covis_weight=30) if loop else None,
-                             matcher=self.matcher, mesh=mesh, device=self.dev)
-
-    def step_image(self, slam, img, t):
-        """One frame through the user's entry points: SuperPoint, unproject,
-        track_frame (LightGlue runs inside as the matcher), then a device
-        synchronize (the frame's latency is what a user feels)."""
-        from rover_slam_tpu_torch.geometry import cameras
-        out = self.ext(img)
-        kpts = out["keypoints"][0]
-        rays = cameras.unproject(cameras.PINHOLE, self.camt, kpts)
-        info = slam.track_frame(kpts, rays, out["descriptors"][0], out["valid"][0], float(t))
-        _sync(self.dev)
-        return info
-
-    def step(self, slam, i):
-        return self.step_image(slam, self.imgs[i], self.times[i])
-
-    def warm_up(self, n: int = 2):
-        """Allocator, cuDNN and cuBLAS plans, on a throw-away system."""
-        warm = self.new_slam()
-        for i in range(n):
-            self.step(warm, i)
-
-
-def _tracked(slam) -> int:
-    """Frames logged as OK (in pipeline mode the state at each frame's finish)."""
-    from rover_slam_tpu_torch.slam import tracking as T
-    return sum(e[3] == T.OK for e in slam.trajectory)
-
-
 def run_path_a(scene):
     """Every frame of the scene through a fresh synchronous system; the
     result line, with the kernel launches counted from 0 over the run."""
@@ -892,107 +760,6 @@ def phase_path_b_lifecycle(dev):
             and slam._next_uid > K and math.isfinite(ate_cm)):
         raise AssertionError("path B lifecycle: tables not recycled cleanly")
     return res
-
-
-def run_path_c(scene, count_syncs: bool, n_warm: int = 40, pipeline: int = 4,
-               loop: bool = False, name: str = "C", mesh=None, keep_slam: bool = False):
-    """bench.py's loop over the scene: a fresh pipeline=4 system, 40 warm-up
-    frames, flush, precompile, the timed frames, flush. fps and frame times
-    over the timed frames; with count_syncs, the implicit host syncs of the
-    timed frames counted by torch.cuda.set_sync_debug_mode("warn") (the
-    deferred flags reads, one event wait per frame, are not among them).
-    loop=True is path E (bench.py with its loop closer): the result adds
-    flush_ms, the loop events, bench.py's loop_diag, the frame that fired
-    the first loop with its ms and the frames that ran a deferred global BA
-    chunk with theirs. mesh: the system's mesh (path L2). Keys that start
-    with "_" are kept out of the log line: the raw per-frame poses logged
-    before the first loop fired (and with keep_slam the system)."""
-    n_frames = len(scene.imgs)
-    scene.warm_up()
-    slam = scene.new_slam(pipeline=pipeline, loop=loop, mesh=mesh)
-    lc = slam.loop_closer
-    n_traj_before, n_loops_after, pending_after = [], [], []
-
-    def step(i):
-        n_traj_before.append(len(slam.trajectory))
-        scene.step(slam, i)
-        n_loops_after.append(len(slam.loop_events))
-        pending_after.append(lc._gba_pending if lc is not None else 0)
-
-    _reset_launches()
-    for i in range(n_warm):
-        step(i)
-    slam.flush()
-    slam.precompile()
-    frame_ms = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        if count_syncs:
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            for i in range(n_warm, n_frames):
-                t1 = time.perf_counter()
-                step(i)
-                frame_ms.append((time.perf_counter() - t1) * 1000.0)
-            t_fl = time.perf_counter()
-            slam.flush()
-            _sync(scene.dev)
-            flush_ms = (time.perf_counter() - t_fl) * 1000.0
-            wall = time.perf_counter() - t0
-        finally:
-            if count_syncs:
-                torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    launches = _launches()
-    frame_ms = np.asarray(frame_ms)
-    n_timed = n_frames - n_warm
-    n_tracked = _tracked(slam)
-    ate_cm, _ = _ate_cm(slam, scene.R_gt, scene.t_gt, scene.times)
-    res = {"frames": n_frames, "frames_timed": n_timed, "fps": n_timed / wall,
-           "frame_ms_median": float(np.median(frame_ms)),
-           "frame_ms_mean": float(frame_ms.mean()),
-           "frame_ms_p95": float(np.percentile(frame_ms, 95)),
-           "frame_ms_max": float(frame_ms.max()), "flush_ms": flush_ms,
-           "ate_cm": ate_cm, "frac_tracked": n_tracked / n_frames, "frames_tracked": n_tracked,
-           "n_kf": slam.n_kf, "n_lm": int(slam.state.n_lm),
-           "host_syncs_per_frame": syncs / n_timed if count_syncs else None,
-           "launches": launches, "trajectory_digest": trajectory_digest(slam),
-           "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
-    if loop:
-        res.update(loop_summary(slam))
-        fire = next((i for i, n in enumerate(n_loops_after) if n > 0), None)
-        chunks = [i for i in range(1, n_frames)
-                  if fire is not None and i > fire and pending_after[i] < pending_after[i - 1]]
-        res.update({"fire_frame": fire,
-                    "fire_frame_ms": (float(frame_ms[fire - n_warm])
-                                      if fire is not None and fire >= n_warm else None),
-                    "gba_chunk_frames": chunks,
-                    "gba_chunk_ms": [float(frame_ms[i - n_warm]) for i in chunks if i >= n_warm]})
-        n_before = n_traj_before[fire] if fire is not None else len(slam.trajectory)
-        res["_poses_before_fire"] = [
-            (e[0], e[3], torch.as_tensor(e[1]).cpu().numpy(), torch.as_tensor(e[2]).cpu().numpy())
-            for e in slam.trajectory[:n_before]]
-    if keep_slam:
-        res["_slam"] = slam
-    log(f"# path {name}:", json.dumps({k: v for k, v in res.items() if not k.startswith("_")}))
-    return res
-
-
-def loop_summary(slam) -> dict:
-    """n_loops, the loop events and bench.py's loop_diag (retrieval gates,
-    verification dispatches, best seed and guided inlier counts)."""
-    lc = slam.loop_closer
-    events = [dict(kf=kf, **{k: v for k, v in info.items() if k != "loop"})
-              for kf, info in slam.loop_events]
-    diag = {"n_queries": len(lc.score_log),
-            "n_dispatched": sum(1 for r in lc.score_log if r[3]),
-            "max_retrieval_score": max((r[1] for r in lc.score_log), default=0.0),
-            "max_minscore_gate": max((r[2] for r in lc.score_log), default=0.0),
-            "best_seed_inliers": max((max(r[4]) for r in lc.cand_log if r[4]), default=0),
-            "best_proj_inliers": max((r[6] for r in lc.cand_log), default=0),
-            "n_hyp_checks": len(lc.hyp_log)}
-    return {"n_loops": len(slam.loop_events), "loop_events": events, "loop_diag": diag}
 
 
 def phase_path_c(scene):
@@ -2322,14 +2089,6 @@ def _first_step_grads(model):
         f"to_q/to_k/to_v weight gradients zero")
     if bad or zero or n_qkv != LIGHTGLUE_LAYERS * 2 * 3:
         raise AssertionError(f"path K2 step 0: not finite {bad}, zero {zero}")
-
-
-def card() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-            f"nvidia-smi failed: {smi.stderr.strip()}")
 
 
 def phase_path_k(tmp_root: str):

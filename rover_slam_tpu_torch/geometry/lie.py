@@ -146,6 +146,15 @@ def se3_apply(R, t, X):
     return torch.einsum("...ij,...j->...i", R, X) + t
 
 
+def se3_matrix(R, t):
+    """(R, t) -> [..., 4, 4] homogeneous matrix."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(batch + (1, 4))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 # ---------------------------------------------------------------------------
 # Sim(3): (s scalar, R, t). Acts as X -> s R X + t.
 # ---------------------------------------------------------------------------

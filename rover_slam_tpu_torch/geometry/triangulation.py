@@ -58,3 +58,9 @@ def triangulate_and_check(ray0, ray1, R0w, t0w, R1w, t1w,
     cosp = parallax_cos(ray0, torch.einsum("...ij,...j->...i", R01, ray1))
     valid = (z0 > 0) & (z1 > 0) & (cosp < min_parallax_cos) & (cosp > -0.5)
     return Xw, valid
+
+
+def reprojection_error2(params_project, Xc: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Squared pixel reprojection error given a projection closure."""
+    duv = params_project(Xc) - uv
+    return torch.sum(duv * duv, dim=-1)

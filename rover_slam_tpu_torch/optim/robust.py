@@ -17,6 +17,11 @@ def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
                        torch.sqrt(delta2 / safe))
 
 
+def cauchy_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
+    """IRLS weight of the Cauchy kernel: 1 / (1 + chi2 / delta2)."""
+    return 1.0 / (1.0 + chi2 / delta2)
+
+
 def huber_cost(chi2: torch.Tensor, delta2) -> torch.Tensor:
     """Huber cost on squared residuals (ba._huber_cost / pose_opt._huber_cost
     in the JAX package)."""

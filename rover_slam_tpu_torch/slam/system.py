@@ -828,3 +828,9 @@ class MonocularSLAM:
                 else:
                     hyp["cand"], hyp["q_last"] = c, q
         self._on_compaction(kf_map)
+
+
+def frame_inliers(frame) -> int:
+    """Keypoints of a tracked frame associated with a landmark (0 before the
+    frame has associations)."""
+    return int((frame.landmark_idx >= 0).sum()) if frame.landmark_idx is not None else 0

@@ -1,5 +1,6 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
-chip_smoke.py, profile_port.py, probe_history.py, tests/test_torch_cuda.py
+chip_smoke.py, bench_port.py, bench_scaling_port.py, profile_port.py,
+probe_history.py, tests/test_torch_cuda.py, tests/test_torch_cuda_zero_blocks.py
 or tests/torch_multihost_worker.py) imports JAX, Flax, Optax or the JAX
 package, its shipped codebooks are plain arrays, its entry points (the
 systems, the app, the trainers, the demo, entry.py and the meshes) default
@@ -26,8 +27,10 @@ CAM = np.asarray([458.0, 458.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
 
 def _port_files():
     files = sorted((ROOT / "rover_slam_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_port.py", ROOT / "probe_history.py",
-        ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "torch_multihost_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "bench_port.py", ROOT / "bench_scaling_port.py",
+        ROOT / "profile_port.py", ROOT / "probe_history.py",
+        ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cuda_zero_blocks.py",
+        ROOT / "tests" / "torch_multihost_worker.py"]
     assert len(files) > 20
     return files
 
@@ -53,6 +56,15 @@ def test_port_never_imports_jax_or_the_jax_package():
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in _port_files()
            for m in _imported_modules(p) if _forbidden(m)]
     assert not bad, bad
+
+
+def test_benchmark_scripts_and_card_tests_are_covered():
+    """The twins of bench.py and bench_scaling.py and the card-only tests
+    are files this test scans."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for f in ("bench_port.py", "bench_scaling_port.py", "tests/test_torch_cuda.py",
+              "tests/test_torch_cuda_zero_blocks.py"):
+        assert f in names and (ROOT / f).exists(), f
 
 
 def test_loop_closing_modules_are_covered():
