@@ -133,6 +133,14 @@ def _launches() -> dict:
             "nn_by_shape": dict(nm.launches_by_shape)}
 
 
+def bench_camera(hw=(H, W)) -> np.ndarray:
+    """bench.py's pinhole camera [8] at image size hw; a narrower image
+    keeps the field of view (fx scales with the width)."""
+    h, w = hw
+    fx = FX * w / W
+    return np.asarray([fx, fx, w / 2.0, h / 2.0, 0, 0, 0, 0], np.float32)
+
+
 def bench_scene(n_frames: int = N_WARM + N_TIMED, hw=(H, W)):
     """bench.py's scene without its images: (cam [8], the ring photo world,
     (R_cw, t_cw, times)), cut to n_frames at the bench's per-frame motion
@@ -140,8 +148,7 @@ def bench_scene(n_frames: int = N_WARM + N_TIMED, hw=(H, W)):
     view: fx scales with the width."""
     from rover_slam_tpu_torch.utils import synthetic
     h, w = hw
-    fx = FX * w / W
-    cam = np.asarray([fx, fx, w / 2.0, h / 2.0, 0, 0, 0, 0], np.float32)
+    cam = bench_camera(hw)
     world = synthetic.make_photo_world(n_sprites=1400, patch=17, seed=0, image_hw=(h, w),
                                        layout="ring", ring_orbit_radius=5.0)
     gt = synthetic.orbit_trajectory(n_frames=n_frames, orbit_radius=5.0,
@@ -227,6 +234,29 @@ class PathA:
             self.step(warm, i)
 
 
+class _SyncCount:
+    n = None
+
+
+@contextlib.contextmanager
+def counting_syncs(dev, on: bool = True):
+    """Counts the implicit host syncs of the block, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: the yielded
+    object's n, set when the block ends (None on the CPU or with on=False)."""
+    box = _SyncCount()
+    if not (on and dev.type == "cuda"):
+        yield box
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    box.n = sum("synchroniz" in str(w.message) for w in caught)
+
+
 def _tracked(slam) -> int:
     """Frames logged as OK (in pipeline mode the state at each frame's finish)."""
     from rover_slam_tpu_torch.slam import tracking as T
@@ -264,25 +294,17 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = N_WARM, pipeline: int = 4
     slam.flush()
     slam.precompile()
     frame_ms = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        if count_syncs:
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            for i in range(n_warm, n_frames):
-                t1 = time.perf_counter()
-                step(i)
-                frame_ms.append((time.perf_counter() - t1) * 1000.0)
-            t_fl = time.perf_counter()
-            slam.flush()
-            _sync(scene.dev)
-            flush_ms = (time.perf_counter() - t_fl) * 1000.0
-            wall = time.perf_counter() - t0
-        finally:
-            if count_syncs:
-                torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    with counting_syncs(scene.dev, on=count_syncs) as syncs:
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_frames):
+            t1 = time.perf_counter()
+            step(i)
+            frame_ms.append((time.perf_counter() - t1) * 1000.0)
+        t_fl = time.perf_counter()
+        slam.flush()
+        _sync(scene.dev)
+        flush_ms = (time.perf_counter() - t_fl) * 1000.0
+        wall = time.perf_counter() - t0
     launches = _launches()
     frame_ms = np.asarray(frame_ms)
     n_timed = n_frames - n_warm
@@ -295,7 +317,7 @@ def run_path_c(scene, count_syncs: bool, n_warm: int = N_WARM, pipeline: int = 4
            "frame_ms_max": float(frame_ms.max()), "flush_ms": flush_ms,
            "ate_cm": ate_cm, "frac_tracked": n_tracked / n_frames, "frames_tracked": n_tracked,
            "n_kf": slam.n_kf, "n_lm": int(slam.state.n_lm),
-           "host_syncs_per_frame": syncs / n_timed if count_syncs else None,
+           "host_syncs_per_frame": syncs.n / n_timed if count_syncs else None,
            "launches": launches, "trajectory_digest": trajectory_digest(slam),
            "stage_median_ms": {k: v["median_ms"] for k, v in slam.timers.summary().items()}}
     if loop:
@@ -352,6 +374,63 @@ def time_it(fn, dev, warmup: int = 2, reps: int = 20) -> float:
         fn()
     _sync(dev)
     return (time.perf_counter() - t0) / reps
+
+
+def clone_state(st):
+    """A MapState whose tensors are copies of st's (the profiling twins run
+    every timed call on its own)."""
+    from rover_slam_tpu_torch.map import map_state as ms
+    return st.replace(**{f: getattr(st, f).clone() for f in ms.FIELDS})
+
+
+def output_digest(out) -> str:
+    """sha256 of a call's outputs (tensors, numbers and nested tuples of
+    them), their dtypes and shapes included: two calls that agree to the bit
+    give the same digest. Reads the outputs to the host."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif isinstance(x, torch.Tensor):
+            x = x.detach().cpu().contiguous()
+            h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+            h.update(x.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+    walk(out)
+    return h.hexdigest()[:16]
+
+
+def profile_call(fn, dev, warmup: int = 2, reps: int = 10, minus_ms: float = 0.0) -> dict:
+    """One line of the profiling twins: fn() runs a stage once. Returns
+    ms, the time a call by bench.py's time_it protocol (warmup calls, then
+    reps calls ended by one synchronize) less minus_ms (the state clone each
+    call makes); b1, b2 and b1_by_batch, the kernel launches of one more
+    call, counted apart from the timed ones, with syncs its implicit host
+    syncs (None on the CPU); digests, the outputs' digest of the warm-up
+    calls and of the counted one; out, the counted call's outputs."""
+    digests = [output_digest(fn()) for _ in range(warmup)]
+    before = _launches()
+    with counting_syncs(dev) as syncs:
+        out = fn()
+        _sync(dev)
+    after = _launches()
+    digests.append(output_digest(out))
+    ms = time_it(fn, dev, warmup=0, reps=reps) * 1000.0 - minus_ms
+    by_batch = {b: n - before["attention_by_batch"].get(b, 0)
+                for b, n in after["attention_by_batch"].items()}
+    return {"ms": ms, "b1": after["attention"] - before["attention"],
+            "b2": after["nn"] - before["nn"], "syncs": syncs.n,
+            "b1_by_batch": {b: n for b, n in by_batch.items() if n},
+            "digests": digests, "out": out}
+
+
+def counts(r: dict) -> str:
+    """The launches and syncs the twins print after each line."""
+    return f"b1={r['b1']} b2={r['b2']} syncs={r['syncs']}"
 
 
 def device_info(dev) -> dict:

@@ -2,7 +2,13 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases below; any failure raises and the script exits non-zero. Phases 1-3
+run first, alone on the card. Then two worker processes (`--worker H,I,K`
+and `--worker F,J`, see WORKER_GROUPS) run paths H, I, K and F, J beside
+the main process's paths A, B, C, D and G's pipelined run; the main process
+reads their launches and seconds by phase when they end, and fails if one
+does. Last, alone on the card, the main process runs paths E, M, L and G's
+synchronous runs.
   1. build   — nvcc builds every CUDA kernel of the port from csrc/.
   2. parity  — each kernel against its plain PyTorch version on the card, at
                the paths' shapes (B1 at B=1, 2, 3; B2 at the SuperPoint size
@@ -58,9 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                200 Hz, camera = body, tests/test_e2e_inertial.py's IMU
                calibration), MonocularInertialSLAM(tinit_s=2.0), loop
                closing on with LoopConfig(min_covis_weight=30,
-               fix_scale=True). Synchronous twice (one trajectory digest),
-               then pipeline=4 once over the first G_PIPELINED_FRAMES
-               frames. Each run must initialize the IMU,
+               fix_scale=True). Pipeline=4 once over the first
+               G_PIPELINED_FRAMES frames (beside the workers), then
+               synchronous twice (one trajectory digest; alone on the
+               card). Each run must initialize the IMU,
                refine frames and run VI-BA after the init and launch B1 and
                B2; the synchronous runs must track >= 90 % of their frames
                and keep the metric ATE (Horn without scale, over the frames
@@ -138,15 +145,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                L_DT_BOUND and L3_COST_RTOL of L1, NCCL equal to L1 to the
                bit. L4: entry.dryrun_multichip(8) and entry()'s front-end
                step once. Gates in phase_path_l.
+ 17. path M  — the profiling twins' stage functions, run right after path
+               E on E run 1's final map (bench.py's configuration, 160
+               frames, the loop fired): one pass (a warm-up call, a counted
+               call and one timed call a line) of profile_stages_port.py's
+               programs other than SuperPoint and the LightGlue pair (the
+               fused track+map program without and with the insert, the
+               loop closer's detect program, match_batch at B =
+               n_candidates, the Sim3-candidates program with the learned
+               and the mutual-NN matches) and of profile_insert_port.py's
+               split of the keyframe insert (the full insert with 2, 1 and
+               no BA iterations, covisibility, the pair triangulations,
+               fusion, descriptors, the BA window, local BA at 1, 2 and 4
+               iterations, the statistics tail). Every stage time finite
+               and positive, the full insert adds one keyframe, the pair
+               triangulations launch B2, match_batch launches B1 at B =
+               n_candidates, and each stage's outputs agree to the bit over
+               its two untimed calls on fresh clones of the map. Gates in
+               phase_path_m.
 Then one JSON line of kernels, the card's name and power limit, and a last
 line {"ok": true, "device": {...}}. Needs a CUDA device; never imports JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -778,8 +805,9 @@ def phase_path_c(scene):
 
 def phase_path_e(scene):
     """Path E twice (bench.py's configuration): one digest, >= 90 % of
-    frames tracked, a loop fired in each run."""
-    runs = [run_path_c(scene, count_syncs=True, loop=True, name="E"),
+    frames tracked, a loop fired in each run. Run 1 keeps its system for
+    path M."""
+    runs = [run_path_c(scene, count_syncs=True, loop=True, name="E", keep_slam=True),
             run_path_c(scene, count_syncs=False, loop=True, name="E")]
     for r in runs:
         if not r["frac_tracked"] >= 0.9:
@@ -791,6 +819,58 @@ def phase_path_e(scene):
     if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
         raise AssertionError("path E: two runs gave different trajectories")
     return runs
+
+
+def phase_path_m(scene, e_run1, dev):
+    """Path M: the profiling twins' stage functions on path E run 1's final
+    map, one pass (warm-up 1, reps 1): profile_stages_port.program_stages
+    and profile_insert_port.insert_stages. Gates: every stage time finite
+    and positive, insert_full(ba2) adds one keyframe, triangulate_x2
+    launches B2, match_batch launches B1 at B = n_candidates, and each
+    stage's output digest equal over its two untimed calls on fresh
+    clones."""
+    from profile_insert_port import insert_stages
+    from profile_stages_port import program_stages
+    t_m = time.perf_counter()
+    slam = e_run1.pop("_slam")
+    n_kf, B = slam.n_kf, slam.loop_closer.cfg.n_candidates
+    _reset_launches()
+    lines = []
+
+    def emit(*a):
+        lines.append(" ".join(str(x) for x in a))
+    stages = program_stages(slam, scene.matcher, dev, warmup=1, reps=1, fused_reps=1,
+                            emit=emit)
+    insert = insert_stages(slam.state, scene.cam, warmup=1, reps=1, emit=emit)
+    _sync(dev)
+    launches = _launches()
+    del slam
+    for ln in lines:
+        log("# path M:", ln)
+    timed = {**stages, **{k: r for k, r in insert.items() if k != "state_copy_ms"}}
+    res = {"stages": {k: {f: r[f] for f in ("ms", "b1", "b2", "syncs", "b1_by_batch")}
+                      for k, r in timed.items()},
+           "candidates": stages["detect_add_ms"]["candidates"], "n_kf": n_kf,
+           "launches": {k: launches[k] for k in ("attention", "nn")},
+           "s": time.perf_counter() - t_m, "card": card()}
+    log("# path M:", json.dumps(res))
+    bad = [k for k, r in timed.items() if not (math.isfinite(r["ms"]) and r["ms"] > 0)]
+    if bad:
+        raise AssertionError(f"path M: stage times not finite and positive: "
+                             f"{ {k: timed[k]['ms'] for k in bad} }")
+    scal = insert["insert_full(ba2)_ms"]["out"][0]
+    if int(scal[4]) != n_kf + 1:
+        raise AssertionError(f"path M: insert_full(ba2) gave n_kf {int(scal[4])}, not {n_kf + 1}")
+    if not insert["triangulate_x2_ms"]["b2"] >= 2:
+        raise AssertionError(f"path M: triangulate_x2 launched B2 "
+                             f"{insert['triangulate_x2_ms']['b2']} times")
+    mb = stages[f"match_batch{B}_ms"]["b1_by_batch"]
+    if not mb.get(B, 0) > 0:
+        raise AssertionError(f"path M: match_batch launched B1 at {mb}, not at B={B}")
+    split = [k for k, r in timed.items() if len(set(r["digests"])) != 1]
+    if split:
+        raise AssertionError(f"path M: outputs differ between calls on fresh clones: {split}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1278,34 +1358,44 @@ def run_path_g(scene, pipeline: int, count_syncs: bool, n_frames: int | None = N
     return res
 
 
-def phase_path_g(scene):
-    """Synchronous twice (one digest), then pipeline=4 once. Every run must
-    initialize the IMU, refine frames and run VI-BA after the init and
-    launch B1 and B2; the synchronous runs must track >= 90 % of the frames
-    and hold the metric ATE under G_ATE_BOUND_CM. The JAX package's
-    pipelined inertial path loses tracking about 8 frames after the init on
-    this scene (75 of 120 frames tracked on the CPU, parity_fullwidth.py
-    --inertial --pipeline 4; ROADMAP.md section C), so the pipelined run
-    must track >= 90 % of the frames up to the init and its tracking after
-    it is reported, not gated; it runs the first G_PIPELINED_FRAMES."""
-    runs = [run_path_g(scene, 0, count_syncs=True), run_path_g(scene, 0, count_syncs=False),
-            run_path_g(scene, 4, count_syncs=False, n_frames=G_PIPELINED_FRAMES)]
+def _gate_path_g(r):
+    name = f"path G (pipeline={r['pipeline']})"
+    if r["imu_ready_frame"] is None:
+        raise AssertionError(f"{name}: the IMU never initialized")
+    tracked = r["frac_tracked_to_init"] if r["pipeline"] else r["frac_tracked"]
+    if not tracked >= 0.9:
+        raise AssertionError(f"{name} tracked only {tracked:.2f} of frames")
+    if not r["pipeline"] and not (math.isfinite(r["ate_metric_cm"])
+                                  and r["ate_metric_cm"] < G_ATE_BOUND_CM):
+        raise AssertionError(f"{name}: metric ATE {r['ate_metric_cm']} cm, "
+                             f"bound {G_ATE_BOUND_CM} cm")
+    if not (r["vi_refines"] > 0 and r["vi_ba_runs"] >= 2):
+        raise AssertionError(f"{name}: {r['vi_refines']} VI refinements and "
+                             f"{r['vi_ba_runs']} VI-BA runs")
+    if not (r["launches"]["attention"] > 0 and r["launches"]["nn"] > 0):
+        raise AssertionError(f"{name}: launches {r['launches']}")
+
+
+def phase_path_g_pipelined(scene):
+    """Path G with pipeline=4 over the first G_PIPELINED_FRAMES frames. Every
+    run of path G must initialize the IMU, refine frames and run VI-BA after
+    the init and launch B1 and B2. The JAX package's pipelined inertial path
+    loses tracking about 8 frames after the init on this scene (75 of 120
+    frames tracked on the CPU, parity_fullwidth.py --inertial --pipeline 4;
+    ROADMAP.md section C), so this run must track >= 90 % of the frames up
+    to the init and its tracking after it is reported, not gated."""
+    r = run_path_g(scene, 4, count_syncs=False, n_frames=G_PIPELINED_FRAMES)
+    _gate_path_g(r)
+    return r
+
+
+def phase_path_g_sync(scene):
+    """Path G synchronous twice (one digest): besides the gates of every
+    path G run, each must track >= 90 % of the frames and hold the metric
+    ATE under G_ATE_BOUND_CM."""
+    runs = [run_path_g(scene, 0, count_syncs=True), run_path_g(scene, 0, count_syncs=False)]
     for r in runs:
-        name = f"path G (pipeline={r['pipeline']})"
-        if r["imu_ready_frame"] is None:
-            raise AssertionError(f"{name}: the IMU never initialized")
-        tracked = r["frac_tracked_to_init"] if r["pipeline"] else r["frac_tracked"]
-        if not tracked >= 0.9:
-            raise AssertionError(f"{name} tracked only {tracked:.2f} of frames")
-        if not r["pipeline"] and not (math.isfinite(r["ate_metric_cm"])
-                                      and r["ate_metric_cm"] < G_ATE_BOUND_CM):
-            raise AssertionError(f"{name}: metric ATE {r['ate_metric_cm']} cm, "
-                                 f"bound {G_ATE_BOUND_CM} cm")
-        if not (r["vi_refines"] > 0 and r["vi_ba_runs"] >= 2):
-            raise AssertionError(f"{name}: {r['vi_refines']} VI refinements and "
-                                 f"{r['vi_ba_runs']} VI-BA runs")
-        if not (r["launches"]["attention"] > 0 and r["launches"]["nn"] > 0):
-            raise AssertionError(f"{name}: launches {r['launches']}")
+        _gate_path_g(r)
     if runs[0]["trajectory_digest"] != runs[1]["trajectory_digest"]:
         raise AssertionError("path G: two synchronous runs gave different trajectories")
     return runs
@@ -2189,18 +2279,126 @@ def phase_path_k(tmp_root: str):
     return res
 
 
+# Paths run in worker processes beside the main process's first paths, one
+# group a process: every path is host-bound (the card is busy under a tenth
+# of a frame), so three processes share the card at little cost to each.
+# The groups are balanced on the seconds by phase of one process. The paths
+# whose gates hold two runs equal to the bit (E's two runs, L2 against E
+# run 1, G's two synchronous runs) run after the workers have ended, alone
+# on the card: a loop closer reads its detection packs once they have
+# landed (HostCopy.ready), and beside another process's work the card lands
+# them later, which moves a loop event by a frame or two (F's and I's ATEs
+# move within their bounds; A, B, C, D, G's pipelined run, H, J and K come
+# out as alone).
+WORKER_GROUPS = (("H", "I", "K"), ("F", "J"))
+
+
+def _phase_f(dev):
+    return phase_path_f(dev)
+
+
+def _phase_h(dev):
+    with tempfile.TemporaryDirectory(prefix="path_h_") as tmp_root:
+        return {"H": phase_path_h(tmp_root)}
+
+
+def _phase_i(dev):
+    return dict(zip(("I", "I RGBD"), phase_path_i(PathI(dev, n_frames=160))))
+
+
+def _phase_j(dev):
+    with tempfile.TemporaryDirectory(prefix="path_j_") as tmp_root:
+        return dict(zip(("J1", "J2"), phase_path_j(tmp_root)))
+
+
+def _phase_k(dev):
+    with tempfile.TemporaryDirectory(prefix="path_k_") as tmp_root:
+        return {"K": phase_path_k(tmp_root)}
+
+
+WORKER_PHASES = {"F": _phase_f, "H": _phase_h, "I": _phase_i, "J": _phase_j,
+                 "K": _phase_k}
+
+
+class Marks:
+    """Seconds by phase of one process."""
+
+    def __init__(self):
+        self.t = [time.perf_counter()]
+        self.names = []
+
+    def __call__(self, name):
+        self.t.append(time.perf_counter())
+        self.names.append(name)
+
+    def seconds(self) -> dict:
+        return {n: round(self.t[i + 1] - self.t[i], 1) for i, n in enumerate(self.names)}
+
+
+def worker_main(group: str, out_path: str):
+    """Run the paths of one worker group and write their launches and
+    seconds by phase to out_path as JSON."""
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG: dies with the script
+    dev = torch.device("cuda", 0)
+    marks = Marks()
+    paths = {}
+    for name in group.split(","):
+        paths.update(WORKER_PHASES[name](dev))
+        marks(name)
+    with open(out_path, "w") as f:
+        json.dump({"launches": {k: p["launches"] for k, p in paths.items()},
+                   "seconds": marks.seconds()}, f)
+
+
+class Workers:
+    """The worker processes: started together, polled between the main
+    sequence's phases (a failed worker fails the script at once), joined at
+    the end, and killed if the script fails."""
+
+    def __init__(self, tmp: str):
+        self.procs = []
+        for group in WORKER_GROUPS:
+            out = os.path.join(tmp, "worker_" + "".join(group) + ".json")
+            p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                                  ",".join(group), out])
+            self.procs.append((",".join(group), out, p))
+
+    def poll(self):
+        for group, _, p in self.procs:
+            rc = p.poll()
+            if rc not in (None, 0):
+                raise RuntimeError(f"worker {group} failed with exit code {rc}")
+
+    def join(self, timeout: float) -> list:
+        t_end = time.perf_counter() + timeout
+        results = []
+        for group, out, p in self.procs:
+            rc = p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+            if rc != 0:
+                raise RuntimeError(f"worker {group} failed with exit code {rc}")
+            with open(out) as f:
+                results.append((group, json.load(f)))
+        return results
+
+    def kill(self):
+        for _, _, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import rover_slam_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--worker"]:
+        worker_main(sys.argv[2], sys.argv[3])
+        return
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    marks = [("start", t_start)]
-
-    def mark(name):
-        marks.append((name, time.perf_counter()))
+    mark = Marks()
 
     log(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -2208,46 +2406,51 @@ def main():
     attn_err, nn_err = phase_parity(dev)
     timing = phase_timing(dev)
     mark("build, parity, timing")
-    scene_a = PathA(dev, n_frames=80)
-    phase_lightglue(scene_a)
-    paths = {"A": phase_path_a(scene_a)}
-    del scene_a
-    mark("lightglue, A")
-    paths["B"] = phase_path_b(dev)
-    paths["B kidnap"] = phase_path_b_kidnap(dev)
-    paths["B lifecycle"] = phase_path_b_lifecycle(dev)
-    mark("B")
-    scene_c = PathA(dev, n_frames=160)
-    paths["C"] = phase_path_c(scene_c)
-    mark("C")
-    paths["D"] = phase_path_d(scene_c)
-    mark("D")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # Started after the kernels' timing, which has the card to itself.
+        workers = Workers(tmp)
+        try:
+            scene_a = PathA(dev, n_frames=80)
+            phase_lightglue(scene_a)
+            paths = {"A": phase_path_a(scene_a)}
+            del scene_a
+            mark("lightglue, A")
+            workers.poll()
+            paths["B"] = phase_path_b(dev)
+            paths["B kidnap"] = phase_path_b_kidnap(dev)
+            paths["B lifecycle"] = phase_path_b_lifecycle(dev)
+            mark("B")
+            workers.poll()
+            scene_c = PathA(dev, n_frames=160)
+            paths["C"] = phase_path_c(scene_c)
+            mark("C")
+            workers.poll()
+            paths["D"] = phase_path_d(scene_c)
+            mark("D")
+            workers.poll()
+            scene_g = PathG(dev)
+            paths["G pipeline=4"] = phase_path_g_pipelined(scene_g)
+            mark("G pipeline=4")
+            done = workers.join(timeout=1100.0 - (time.perf_counter() - t_start))
+            mark("waiting for the workers")
+        finally:
+            workers.kill()
+    # Alone on the card from here (see WORKER_GROUPS).
     paths["E run 1"], paths["E run 2"] = phase_path_e(scene_c)
     mark("E")
+    paths["M"] = phase_path_m(scene_c, paths["E run 1"], dev)
+    mark("M")
     paths["L"] = phase_path_l(scene_c, paths["E run 1"], dev)
     mark("L")
     del scene_c
-    paths.update(phase_path_f(dev))
-    mark("F")
-    scene_g = PathG(dev)
-    paths["G sync run 1"], paths["G sync run 2"], paths["G pipeline=4"] = phase_path_g(scene_g)
+    paths["G sync run 1"], paths["G sync run 2"] = phase_path_g_sync(scene_g)
     del scene_g
-    mark("G")
-    with tempfile.TemporaryDirectory(prefix="path_h_") as tmp_root:
-        paths["H"] = phase_path_h(tmp_root)
-    mark("H")
-    scene_i = PathI(dev, n_frames=160)
-    paths["I"], paths["I RGBD"] = phase_path_i(scene_i)
-    del scene_i
-    mark("I")
-    with tempfile.TemporaryDirectory(prefix="path_j_") as tmp_root:
-        paths["J1"], paths["J2"] = phase_path_j(tmp_root)
-    mark("J")
-    with tempfile.TemporaryDirectory(prefix="path_k_") as tmp_root:
-        paths["K"] = phase_path_k(tmp_root)
-    mark("K")
-    log("# seconds by phase:", json.dumps({name: round(t - marks[i][1], 1)
-                                           for i, (name, t) in enumerate(marks[1:])}))
+    mark("G sync")
+    seconds = {"main": mark.seconds()}
+    for group, res in done:
+        seconds[f"worker {group}"] = res["seconds"]
+        paths.update({k: {"launches": v} for k, v in res["launches"].items()})
+    log("# seconds by phase:", json.dumps(seconds))
     launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of rover_slam_tpu_torch/ (nor
-chip_smoke.py, bench_port.py, bench_scaling_port.py, profile_port.py,
-probe_history.py, tests/test_torch_cuda.py, tests/test_torch_cuda_zero_blocks.py
-or tests/torch_multihost_worker.py) imports JAX, Flax, Optax or the JAX
+chip_smoke.py, bench_port.py, bench_scaling_port.py, profile_port.py, the
+profiling twins profile_{stages,insert,iters}_port.py, probe_history.py,
+tests/test_torch_cuda.py, tests/test_torch_cuda_zero_blocks.py or
+tests/torch_multihost_worker.py) imports JAX, Flax, Optax or the JAX
 package, its shipped codebooks are plain arrays, its entry points (the
 systems, the app, the trainers, the demo, entry.py and the meshes) default
 to the card, and the multi-device options (mesh=) are taken."""
@@ -28,7 +29,8 @@ CAM = np.asarray([458.0, 458.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
 def _port_files():
     files = sorted((ROOT / "rover_slam_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_port.py", ROOT / "bench_scaling_port.py",
-        ROOT / "profile_port.py", ROOT / "probe_history.py",
+        ROOT / "profile_port.py", ROOT / "probe_history.py", ROOT / "profile_stages_port.py",
+        ROOT / "profile_insert_port.py", ROOT / "profile_iters_port.py",
         ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cuda_zero_blocks.py",
         ROOT / "tests" / "torch_multihost_worker.py"]
     assert len(files) > 20
@@ -64,6 +66,14 @@ def test_benchmark_scripts_and_card_tests_are_covered():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for f in ("bench_port.py", "bench_scaling_port.py", "tests/test_torch_cuda.py",
               "tests/test_torch_cuda_zero_blocks.py"):
+        assert f in names and (ROOT / f).exists(), f
+
+
+def test_profiling_twins_are_covered():
+    """The twins of profile_stages.py, profile_insert.py and
+    profile_iters.py are files this test scans."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for f in ("profile_stages_port.py", "profile_insert_port.py", "profile_iters_port.py"):
         assert f in names and (ROOT / f).exists(), f
 
 
