@@ -1,0 +1,1 @@
+"""Metrics of the benchmark, found by name from BENCHMARK.json."""

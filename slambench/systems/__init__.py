@@ -1,0 +1,1 @@
+"""Systems of the benchmark, found by name from BENCHMARK.json."""
