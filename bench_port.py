@@ -117,20 +117,16 @@ def _ate_cm(slam, R_gt, t_gt, times):
 
 
 def _reset_launches():
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
-    fa.attention_launches = 0
-    fa.launches_by_batch.clear()
-    fa.backward_recomputes = 0
-    nm.nn_launches = 0
-    nm.launches_by_shape.clear()
+    from rover_slam_tpu_torch.utils import profiling
+    profiling.reset_counters()
 
 
 def _launches() -> dict:
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
-    return {"attention": fa.attention_launches, "nn": nm.nn_launches,
-            "attention_backward": fa.backward_recomputes,
-            "attention_by_batch": dict(fa.launches_by_batch),
-            "nn_by_shape": dict(nm.launches_by_shape)}
+    from rover_slam_tpu_torch.utils import profiling as P
+    return {"attention": P.counter("attention_launches"), "nn": P.counter("nn_launches"),
+            "attention_backward": P.counter("backward_recomputes"),
+            "attention_by_batch": P.counter_by("launches_by_batch"),
+            "nn_by_shape": P.counter_by("launches_by_shape")}
 
 
 def bench_camera(hw=(H, W)) -> np.ndarray:

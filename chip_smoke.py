@@ -189,6 +189,8 @@ from bench_port import (D, H, LIGHTGLUE_LAYERS, NK, RELOC_L, W, PathA, _ate_cm,
                         _launches, _reset_launches, _sync, _tracked, card, log, loop_summary,
                         run_path_c, trajectory_digest)
 
+from rover_slam_tpu_torch.utils.profiling import counter, reset_counters, snapshot_counters
+
 # Published H100 SXM peaks (bf16 dense tensor rate, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -401,9 +403,9 @@ def _attention_grad_case(fa, g, dev, dtype):
     up = torch.randn(q.shape, generator=g).to(dev, dtype)
     a = [x.clone().requires_grad_(True) for x in (q, k, v)]
     b = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    n_fwd, n_bwd = fa.attention_launches, fa.backward_recomputes
+    n_fwd, n_bwd = counter("attention_launches"), counter("backward_recomputes")
     out = fa.masked_attention(*a, mask)
-    if out.grad_fn is None or fa.attention_launches != n_fwd + 1:
+    if out.grad_fn is None or counter("attention_launches") != n_fwd + 1:
         raise AssertionError("attention under grad: no kernel launch with a grad_fn")
     out.backward(up)
     ref = fa.masked_attention_plain(*b, mask)
@@ -413,8 +415,8 @@ def _attention_grad_case(fa, g, dev, dtype):
     same = [torch.equal(x.grad, y.grad) for x, y in zip(a, b)]
     log(f"# parity attention grad {dtype} B=4 N=512: forward max abs err {err:.3g}, "
         f"dq/dk/dv equal to the bit {same}, backward recomputes "
-        f"{fa.backward_recomputes - n_bwd}")
-    if not (err < ATTN_TOL and all(same) and fa.backward_recomputes == n_bwd + 1):
+        f"{counter('backward_recomputes') - n_bwd}")
+    if not (err < ATTN_TOL and all(same) and counter("backward_recomputes") == n_bwd + 1):
         raise AssertionError(f"attention gradient {dtype} disagrees with plain autograd")
     return err
 
@@ -522,7 +524,7 @@ def phase_lightglue(scene, pairs=((0, 3), (20, 23), (40, 43))):
     from rover_slam_tpu_torch.models import lightglue as lgm
     from rover_slam_tpu_torch.ops import flash_attention as fa
     lg = scene.matcher.matcher
-    launches = fa.attention_launches
+    saved = snapshot_counters()
     results = []
     for i0, i1 in pairs:
         f0, f1 = scene.ext(scene.imgs[i0]), scene.ext(scene.imgs[i1])
@@ -534,7 +536,7 @@ def phase_lightglue(scene, pairs=((0, 3), (20, 23), (40, 43))):
         with torch.no_grad():
             for name, fn in (("kernel", fa.masked_attention), ("f32p", masked_attention_f32p),
                              ("plain", fa.masked_attention_plain)):
-                n0 = fa.attention_launches
+                n0 = counter("attention_launches")
                 lgm.masked_attention = fn
                 try:
                     full = lg.model(*args)[0]
@@ -543,7 +545,7 @@ def phase_lightglue(scene, pairs=((0, 3), (20, 23), (40, 43))):
                 la[name] = full[0, :-1, :-1]
                 m[name] = lgm.extract_matches(full, args[2], args[5],
                                               lg.threshold)["matches0"][0]
-                if name == "kernel" and fa.attention_launches - n0 != 4 * LIGHTGLUE_LAYERS:
+                if name == "kernel" and counter("attention_launches") - n0 != 4 * LIGHTGLUE_LAYERS:
                     raise AssertionError("LightGlue did not run every attention call "
                                          "on the kernel")
         res = {"pair": [i0, i1]}
@@ -558,7 +560,7 @@ def phase_lightglue(scene, pairs=((0, 3), (20, 23), (40, 43))):
         res["matches"] = {k: int((v >= 0).sum()) for k, v in m.items()}
         log("# lightglue kernel vs plain attentions:", json.dumps(res))
         results.append(res)
-    fa.attention_launches = launches
+    reset_counters(saved)
     for res in results:
         for name, key, limit in (("f32p", "matched_agree", LIGHTGLUE_AGREE),
                                  ("plain", "matched_agree", LIGHTGLUE_AGREE_REF),
@@ -579,7 +581,7 @@ def phase_timing(dev):
     from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
     g = torch.Generator().manual_seed(1)
     rows = {}
-    saved = (fa.attention_launches, nm.nn_launches)
+    saved = snapshot_counters()
     for B in (1, 2, 3):
         q, k, v, mask = attention_inputs(g, B, NK, dev)
         qs = fa._scale_q(q)
@@ -611,7 +613,7 @@ def phase_timing(dev):
             f"({-(-N1 // nm._split_cols(N0, N1))} column splits), plain {tp:.4f} ms, "
             f"cdist+topk {tl:.4f} ms, bound {bnd:.5f} ms ({by})")
         rows[f"nn_{N0}x{N1}x{Dd}"] = (t, tp, tl, bnd, by)
-    fa.attention_launches, nm.nn_launches = saved
+    reset_counters(saved)
     log("# timing rows (ms, plain_ms, library_ms, bound_ms, bound_by):", json.dumps(rows))
     return rows
 
@@ -1964,7 +1966,6 @@ def run_fisheye(scene, cls, calib=None, **kw):
     reduces its fisheye stereo match launched. Returns (slam, per-frame
     records, wall seconds)."""
     from rover_slam_tpu_torch.geometry import cameras
-    from rover_slam_tpu_torch.ops import nn_matcher as nm
     from rover_slam_tpu_torch.slam import stereo as st, tracking as T
     left, right, _, imu = scene
     kb8, R_rl, t_rl = fisheye_rig()
@@ -1974,9 +1975,9 @@ def run_fisheye(scene, cls, calib=None, **kw):
     match, match_reduces = st.fisheye_stereo_match_kernel, []
 
     def counting_match(*a, **k):
-        before = nm.nn_launches
+        before = counter("nn_launches")
         out = match(*a, **k)
-        match_reduces.append(nm.nn_launches - before)
+        match_reduces.append(counter("nn_launches") - before)
         return out
 
     st.fisheye_stereo_match_kernel = counting_match
@@ -2131,9 +2132,9 @@ def k2_gradient_parity(dev):
     row). Its launches are not counted."""
     from rover_slam_tpu_torch.models import lightglue as lgm, weights as Wt
     from rover_slam_tpu_torch.models.superpoint import SuperPointExtractor
-    from rover_slam_tpu_torch.ops import flash_attention as fa, nn_matcher as nm
+    from rover_slam_tpu_torch.ops import flash_attention as fa
     from rover_slam_tpu_torch.training import checkpoints, lightglue_train as lgt
-    saved = (fa.attention_launches, fa.backward_recomputes, nm.nn_launches)
+    saved = snapshot_counters()
     ext = SuperPointExtractor(params=checkpoints.load_params(lgt.SHIPPED_SP),
                               max_keypoints=512, device=dev)
     ds = lgt.make_dataset(ext, np.random.default_rng(7), 4, image_hw=K_HW, n_kpts=512)
@@ -2151,7 +2152,7 @@ def k2_gradient_parity(dev):
             lgm.masked_attention = fa.masked_attention
         grads[name] = {n: p.grad.double() for n, p in model.named_parameters()
                        if not n.endswith("cross_attn.to_k.bias")}
-    fa.attention_launches, fa.backward_recomputes, nm.nn_launches = saved
+    reset_counters(saved)
     worst = {}
     for ref in ("f32p", "plain"):
         cos = {n: float((g * grads[ref][n]).sum() / (g.norm() * grads[ref][n].norm()))

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.flash_attention import masked_attention
+from ..utils import profiling
 from . import weights as W
 
 NEG_INF = -1e9
@@ -161,30 +162,33 @@ class LightGlue(nn.Module):
     def forward(self, kpts0, desc0, mask0, kpts1, desc1, mask1):
         """kpts [B,N,2] in [-1,1]; desc [B,N,256]; mask [B,N] bool. Returns
         (log_assignment [B,N0+1,N1+1], matchability0 [B,N0], matchability1)."""
-        d0 = _linear(self.input_proj, desc0, self.dtype)
-        d1 = _linear(self.input_proj, desc1, self.dtype)
-        rope0 = tuple(r.to(self.dtype) for r in self.posenc(kpts0.float()))
-        rope1 = tuple(r.to(self.dtype) for r in self.posenc(kpts1.float()))
-        for layer in self.layers:
-            d0, d1 = layer(d0, d1, rope0, rope1, mask0, mask1)
-        scale = float(self.dim) ** 0.25
-        md0 = _linear(self.final_proj, d0.float(), torch.float32) / scale
-        md1 = _linear(self.final_proj, d1.float(), torch.float32) / scale
-        sim = torch.einsum("bmd,bnd->bmn", md0, md1)
-        sim = torch.where(mask0[:, :, None] & mask1[:, None, :], sim, NEG_INF)
-        z0 = _linear(self.matchability, d0.float(), torch.float32)[..., 0]
-        z1 = _linear(self.matchability, d1.float(), torch.float32)[..., 0]
-        scores0 = F.log_softmax(sim, dim=2)
-        scores1 = F.log_softmax(sim, dim=1)
-        cert = F.logsigmoid(z0)[:, :, None] + F.logsigmoid(z1)[:, None, :]
-        B, N0, N1 = sim.shape
-        la = sim.new_zeros((B, N0 + 1, N1 + 1))
-        la[:, :N0, :N1] = scores0 + scores1 + cert
-        la[:, :N0, N1] = F.logsigmoid(-z0)
-        la[:, N0, :N1] = F.logsigmoid(-z1)
-        return la, torch.sigmoid(z0), torch.sigmoid(z1)
+        with profiling.span("lg.layers", sample=False):
+            d0 = _linear(self.input_proj, desc0, self.dtype)
+            d1 = _linear(self.input_proj, desc1, self.dtype)
+            rope0 = tuple(r.to(self.dtype) for r in self.posenc(kpts0.float()))
+            rope1 = tuple(r.to(self.dtype) for r in self.posenc(kpts1.float()))
+            for layer in self.layers:
+                d0, d1 = layer(d0, d1, rope0, rope1, mask0, mask1)
+        with profiling.span("lg.assign", sample=False):
+            scale = float(self.dim) ** 0.25
+            md0 = _linear(self.final_proj, d0.float(), torch.float32) / scale
+            md1 = _linear(self.final_proj, d1.float(), torch.float32) / scale
+            sim = torch.einsum("bmd,bnd->bmn", md0, md1)
+            sim = torch.where(mask0[:, :, None] & mask1[:, None, :], sim, NEG_INF)
+            z0 = _linear(self.matchability, d0.float(), torch.float32)[..., 0]
+            z1 = _linear(self.matchability, d1.float(), torch.float32)[..., 0]
+            scores0 = F.log_softmax(sim, dim=2)
+            scores1 = F.log_softmax(sim, dim=1)
+            cert = F.logsigmoid(z0)[:, :, None] + F.logsigmoid(z1)[:, None, :]
+            B, N0, N1 = sim.shape
+            la = sim.new_zeros((B, N0 + 1, N1 + 1))
+            la[:, :N0, :N1] = scores0 + scores1 + cert
+            la[:, :N0, N1] = F.logsigmoid(-z0)
+            la[:, N0, :N1] = F.logsigmoid(-z1)
+            return la, torch.sigmoid(z0), torch.sigmoid(z1)
 
 
+@profiling.spanned("lg.assign", sample=False)
 def extract_matches(log_assignment, mask0, mask1, threshold: float = 0.0) -> dict:
     """Mutual-argmax matches: matches0 [B,N0] int32 (-1 unmatched),
     mscores0 [B,N0]."""

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..utils import profiling
 from . import weights as W
 
 DESC_DIM = 256
@@ -141,13 +142,15 @@ class SuperPointExtractor:
     @torch.no_grad()
     def __call__(self, images):
         """images: [B,H,W] or [B,H,W,1] grayscale in [0,1]."""
-        images = torch.as_tensor(images, device=self.device).float()
-        if images.dim() == 3:
-            images = images[..., None]
-        prob, desc_coarse = self.model(images)
-        return extract_keypoints(prob, desc_coarse, max_keypoints=self.max_keypoints,
-                                 nms_radius=self.nms_radius,
-                                 score_threshold=self.score_threshold)
+        with profiling.span("sp.backbone", sample=False):
+            images = torch.as_tensor(images, device=self.device).float()
+            if images.dim() == 3:
+                images = images[..., None]
+            prob, desc_coarse = self.model(images)
+        with profiling.span("sp.select", sample=False):
+            return extract_keypoints(prob, desc_coarse, max_keypoints=self.max_keypoints,
+                                     nms_radius=self.nms_radius,
+                                     score_threshold=self.score_threshold)
 
 
 def load_torch_weights(path: str) -> dict:

@@ -24,12 +24,12 @@ differentiated). On the CPU autograd runs through the plain version itself.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 NEG_INF = -1e9
@@ -38,12 +38,10 @@ _HEAD_DIMS = (32, 64)
 # The bf16 kernel keeps one mask byte per key in shared memory.
 MAX_KV_BF16 = 131072
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets
-# these), in all and by batch size B, and the backward recomputes of
-# KernelAttention (one for each launch whose output was differentiated).
-attention_launches = 0
-launches_by_batch = collections.Counter()
-backward_recomputes = 0
+# Counters of utils/profiling.py's registry: kernel launches, in all
+# ("attention_launches") and by batch size B ("launches_by_batch"), and the
+# backward recomputes of KernelAttention ("backward_recomputes", one for
+# each launch whose output was differentiated).
 
 
 def _scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -60,6 +58,7 @@ def masked_attention_plain(q, k, v, mask_kv):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+@profiling.spanned("b1.attention", sample=False)
 def masked_attention(q, k, v, mask_kv):
     """softmax(q k^T / sqrt(Dh), masked over kv) @ v; [B, Nq, H, Dh] out."""
     if q.device.type == "cpu":
@@ -80,7 +79,6 @@ class KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        global backward_recomputes
         q, k, v, mask_kv = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         ins = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), need)]
@@ -88,12 +86,11 @@ class KernelAttention(torch.autograd.Function):
             out = masked_attention_plain(*ins, mask_kv)
             got = iter(torch.autograd.grad(out, [x for x in ins if x.requires_grad],
                                            grad_out))
-        backward_recomputes += 1
+        profiling.count("backward_recomputes")
         return tuple(next(got) if n else None for n in need) + (None,)
 
 
 def _launch(q, k, v, mask_kv):
-    global attention_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (k.device == v.device == mask_kv.device == q.device):
@@ -134,8 +131,8 @@ def _launch(q, k, v, mask_kv):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_kv.data_ptr(),
             out.data_ptr(), _DTYPES[q.dtype], B, H, Nq, Nk, Dh, strides, stream)
     _build.check(status, "flash_attention")
-    attention_launches += 1
-    launches_by_batch[B] += 1
+    profiling.count("attention_launches")
+    profiling.count("launches_by_batch", B)
     return out
 
 

@@ -18,11 +18,11 @@ partials merged in column order) or the call raises.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 BIG = 1e9
@@ -32,10 +32,9 @@ _TILE = 64         # rows and columns of one block tile in csrc/nn_matcher.cu
 MIN_BLOCKS = 128   # blocks a call aims for (132 SMs)
 MAX_DEPTH = 512    # the kernel keeps 192 rows of depth D in shared memory
 
-# Reduces since the last reset (chip_smoke.py reads and resets it); one reduce
-# is two kernel launches, the column splits and their merge.
-nn_launches = 0
-launches_by_shape = collections.Counter()   # "N0xN1xD" -> reduces
+# Counters of utils/profiling.py's registry: reduces, in all ("nn_launches")
+# and by "N0xN1xD" ("launches_by_shape"); one reduce is two kernel launches,
+# the column splits and their merge.
 
 
 def nn_reduce_plain(desc0, desc1, valid1):
@@ -50,6 +49,7 @@ def nn_reduce_plain(desc0, desc1, valid1):
     return best, idx.to(torch.int32), second
 
 
+@profiling.spanned("b2.nn_reduce", sample=False)
 def nn_reduce(desc0, desc1, valid1):
     """(best d^2 [N0] f32, argmin [N0] int32, second-best d^2 [N0] f32)."""
     if desc0.device.type == "cpu":
@@ -100,7 +100,6 @@ def _aligned16(x):
 
 
 def _launch(desc0, desc1, valid1):
-    global nn_launches
     if desc0.device.type != "cuda":
         raise ValueError(f"nn_matcher: unsupported device {desc0.device}")
     if not (desc1.device == valid1.device == desc0.device):
@@ -141,8 +140,8 @@ def _launch(desc0, desc1, valid1):
                                pbest.data_ptr(), pidx.data_ptr(), psecond.data_ptr(),
                                N0, N1, D + pad, split_cols, stream)
     _build.check(status, "nn_matcher")
-    nn_launches += 1
-    launches_by_shape[f"{N0}x{N1}x{D}"] += 1
+    profiling.count("nn_launches")
+    profiling.count("launches_by_shape", f"{N0}x{N1}x{D}")
     return best, idx, second
 
 

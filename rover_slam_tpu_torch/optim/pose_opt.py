@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import lie, cameras
+from ..utils import profiling
 from . import robust
 from .ba import stereo_row
 from .blockinv import solve6
@@ -39,6 +40,7 @@ def _residual_jac(R, t, cam_kind, cam_params, Xw, uv, invd=None, bf=None):
     return e, J, Xc[..., 2]
 
 
+@profiling.spanned("pose_opt")
 def pose_optimization(R_cw, t_cw, Xw, uv, valid, cam_params,
                       cam_kind: int = cameras.PINHOLE, info=None,
                       rounds: int = 4, iters_per_round: int = 10,

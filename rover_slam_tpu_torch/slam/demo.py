@@ -47,7 +47,7 @@ def main(argv=None):
 
 def _run(args):
     from ..utils import synthetic, trajectory
-    from ..utils.profiling import annotate, step_annotate
+    from ..utils.profiling import span
     from . import tracking as T
 
     dev = resolve_device(args.device)
@@ -73,11 +73,11 @@ def _run(args):
                                      desc_dim=64, device=dev)
         t0 = time.perf_counter()
         for i, f in enumerate(frames):
-            with step_annotate("frame", i):
+            with span(f"frame#{i}", sample=False):
                 if i > 0:
                     for a, g, t in zip(*imu[i - 1]):
                         slam.feed_imu(a, g, t)
-                with annotate("track_frame"):
+                with span("track_frame", sample=False):
                     slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time)
         with_scale = False      # metric ATE: the IMU makes scale observable
     else:
@@ -97,7 +97,7 @@ def _run(args):
                              enable_loop_closing=args.loop, device=dev)
         t0 = time.perf_counter()
         for i, f in enumerate(frames):
-            with step_annotate("frame", i), annotate("track_frame"):
+            with span(f"frame#{i}", sample=False), span("track_frame", sample=False):
                 slam.track_frame(f.kpts, f.rays, f.desc, f.valid, f.time)
         slam.flush()
         with_scale = True       # mono scale is gauge freedom

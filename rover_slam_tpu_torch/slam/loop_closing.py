@@ -33,6 +33,7 @@ from ..map import map_state as ms
 from ..ops import association as assoc
 from ..ops import scatterless
 from ..optim import pose_graph, sim3_solver
+from ..utils import profiling
 from .host_copy import HostCopy
 from .tracking import _local_ba_body
 
@@ -516,10 +517,12 @@ class LoopCloser:
         self.score_log = []   # (kf_id, best_score, minscore, dispatched)
         self.cand_log = []    # (kf_id, ids, n_match, sim3_ok, n_inliers, best_j, n_proj)
         self.hyp_log = []     # (q_last, kf_id, cand, n_proj, count, misses)
-        self._pending_detect = deque()   # (kf_id, HostCopy of the detect pack)
+        # (kf_id, HostCopy of the detect pack, polls before its dispatch)
+        self._pending_detect = deque()
         self._pending_cand = deque()     # (kf_id, HostCopy of the pack, s, R, t)
         self._gba_pending = 0
         self._gba_level = None
+        self._polls = 0
         # Open hypothesis: {cand, q_last, count, misses, s, R, t, n_inliers},
         # (s, R, t) the Sim3 candidate camera -> q_last camera.
         self._hyp = None
@@ -597,6 +600,7 @@ class LoopCloser:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    @profiling.spanned("loop.gba")
     def _gba_chunk(self, state: ms.MapState, fresh: bool = False) -> ms.MapState:
         """One chunk of the deferred post-loop global BA at the compaction
         level the live map needs (one host count per fired loop)."""
@@ -633,17 +637,18 @@ class LoopCloser:
         as one device step whose pack is read later, then progress on the
         queues. Returns (state, info)."""
         cfg = self.cfg
-        self.db, dpack = _detect_and_add_kernel(
-            state, self.db, kf_id, cfg.n_candidates, cfg.min_recent_kfs_gap,
-            cfg.min_recent_time_s, cfg.connected_min_weight)
-        dpack = HostCopy(dpack)
+        with profiling.span("loop.detect"):
+            self.db, dpack = _detect_and_add_kernel(
+                state, self.db, kf_id, cfg.n_candidates, cfg.min_recent_kfs_gap,
+                cfg.min_recent_time_s, cfg.connected_min_weight)
+            dpack = HostCopy(dpack)
         if self._hyp is not None:
             self._pending_cand.clear()
             self._pending_detect.clear()
             return self._advance_hypothesis(state, kf_id)
         if kf_id < self._ban_until_kf:
             return state, {"loop": False}
-        self._pending_detect.append((kf_id, dpack))
+        self._pending_detect.append((kf_id, dpack, self._polls))
         fired = self._resolve_candidates(state)
         if fired is not None:
             return fired
@@ -654,6 +659,7 @@ class LoopCloser:
         """Per-frame progress: one deferred GBA chunk, or resolve landed
         packs and dispatch a gated verification. Never waits on the card.
         Returns (state, info or None)."""
+        self._polls += 1
         if self._gba_pending > 0:
             state = self._gba_chunk(state)
             self._gba_pending -= 1
@@ -698,14 +704,18 @@ class LoopCloser:
 
     def _maybe_dispatch_sim3(self, state: ms.MapState):
         """Dispatch the verification of the freshest landed detection (older
-        ones are shed), at most one per call and four in flight."""
+        ones are shed), at most one per call and four in flight. Samples
+        loop.detect_wait (polls from the detection's dispatch to its read)
+        and loop.detect_shed (older detections dropped unread)."""
         while self._pending_detect and len(self._pending_cand) < 4:
             ready_i = self._freshest_ready(self._pending_detect)
             if ready_i is None:
                 return
-            kf_id, dpack = self._pending_detect[ready_i]
+            kf_id, dpack, polls0 = self._pending_detect[ready_i]
             for _ in range(ready_i + 1):
                 self._pending_detect.popleft()
+            profiling.sample("loop.detect_wait", self._polls - polls0)
+            profiling.sample("loop.detect_shed", ready_i)
             if self._dispatch_sim3_for(state, kf_id, dpack):
                 return
 
@@ -726,42 +736,47 @@ class LoopCloser:
         ids_np = np.where(keep, ids_np, -1)
         vB = min(cfg.verify_top, B)
         ids_np = ids_np[np.argsort(np.where(ids_np >= 0, -scores_np, np.inf))[:vB]]
-        ext = self._verify_matches(state, kf_id, ids_np)
-        pack, s_g, R_g, t_g = _sim3_candidates_kernel(
-            state, kf_id, ids_np, self.cam_params, self._generator, cfg.cam_kind,
-            cfg.fix_scale, ext_matches=ext, **self._sim3_kwargs())
-        self._pending_cand.append((kf_id, HostCopy(pack), s_g, R_g, t_g))
+        with profiling.span("loop.verify"):
+            ext = self._verify_matches(state, kf_id, ids_np)
+            pack, s_g, R_g, t_g = _sim3_candidates_kernel(
+                state, kf_id, ids_np, self.cam_params, self._generator, cfg.cam_kind,
+                cfg.fix_scale, ext_matches=ext, **self._sim3_kwargs())
+            self._pending_cand.append((kf_id, HostCopy(pack), s_g, R_g, t_g))
         return True
 
     def _resolve_candidates(self, state: ms.MapState):
         """Read the freshest landed verification pack (shedding older ones)
         and open a hypothesis when it passes the gates; returns (state,
         info) when that hypothesis fires at once, else None."""
-        cfg = self.cfg
-        while self._pending_cand and self._hyp is None:
-            ready_i = self._freshest_ready(self._pending_cand)
-            if ready_i is None:
-                return None
-            kf_id, pack, s_g, R_g, t_g = self._pending_cand[ready_i]
-            for _ in range(ready_i + 1):
-                self._pending_cand.popleft()
-            p = pack.numpy()
-            B = min(cfg.verify_top, cfg.n_candidates)
-            ids_np, nm_np = p[:B], p[B:2 * B]
-            ok_np, ninl_np = p[2 * B:3 * B], p[3 * B:4 * B]
-            best_j, n_proj = int(p[4 * B]), int(p[4 * B + 1])
-            self.cand_log.append((int(kf_id), ids_np.tolist(), nm_np.tolist(), ok_np.tolist(),
-                                  ninl_np.tolist(), best_j, n_proj))
-            cand = int(ids_np[best_j]) if 0 <= best_j < B else -1
-            if (cand >= 0 and ok_np[best_j] and nm_np[best_j] >= cfg.min_bow_matches
-                    and n_proj >= cfg.min_sim3_proj):
-                self._hyp = {"cand": cand, "q_last": kf_id, "count": 1, "misses": 0,
-                             "s": s_g, "R": R_g, "t": t_g, "n_inliers": n_proj}
-                if (cfg.consistency_needed <= 1
-                        or (cfg.strong_fire_proj > 0 and n_proj >= cfg.strong_fire_proj)):
-                    return self._fire(state, kf_id)
-        return None
+        if not self._pending_cand or self._hyp is not None:
+            return None
+        with profiling.span("loop.resolve"):
+            cfg = self.cfg
+            while self._pending_cand and self._hyp is None:
+                ready_i = self._freshest_ready(self._pending_cand)
+                if ready_i is None:
+                    return None
+                kf_id, pack, s_g, R_g, t_g = self._pending_cand[ready_i]
+                for _ in range(ready_i + 1):
+                    self._pending_cand.popleft()
+                p = pack.numpy()
+                B = min(cfg.verify_top, cfg.n_candidates)
+                ids_np, nm_np = p[:B], p[B:2 * B]
+                ok_np, ninl_np = p[2 * B:3 * B], p[3 * B:4 * B]
+                best_j, n_proj = int(p[4 * B]), int(p[4 * B + 1])
+                self.cand_log.append((int(kf_id), ids_np.tolist(), nm_np.tolist(), ok_np.tolist(),
+                                      ninl_np.tolist(), best_j, n_proj))
+                cand = int(ids_np[best_j]) if 0 <= best_j < B else -1
+                if (cand >= 0 and ok_np[best_j] and nm_np[best_j] >= cfg.min_bow_matches
+                        and n_proj >= cfg.min_sim3_proj):
+                    self._hyp = {"cand": cand, "q_last": kf_id, "count": 1, "misses": 0,
+                                 "s": s_g, "R": R_g, "t": t_g, "n_inliers": n_proj}
+                    if (cfg.consistency_needed <= 1
+                            or (cfg.strong_fire_proj > 0 and n_proj >= cfg.strong_fire_proj)):
+                        return self._fire(state, kf_id)
+            return None
 
+    @profiling.spanned("loop.hypothesis")
     def _advance_hypothesis(self, state: ms.MapState, kf_id: int):
         """Re-confirm the open hypothesis from keyframe kf_id (one host read
         of the match count)."""
@@ -783,6 +798,7 @@ class LoopCloser:
             self._hyp = None
         return state, {"loop": False}
 
+    @profiling.spanned("loop.fire")
     def _fire(self, state: ms.MapState, kf_id: int):
         """Run the correction (same map) or the merge (another map) from
         keyframe kf_id with a fresh Sim3 solve, or the hypothesis's Sim3
@@ -794,11 +810,13 @@ class LoopCloser:
         self._pending_cand.clear()
         self._pending_detect.clear()
         cand = hyp["cand"]
-        ok_s, _, s_f, R_f, t_f, n_proj = _sim3_pair_guided(
-            state, kf_id, cand, self.cam_params, self._generator, cfg.cam_kind, cfg.fix_scale,
-            ext_matches=self._kf_matches(state, kf_id, cand), **self._sim3_kwargs())
-        n_proj = int(n_proj)
-        if bool(ok_s) and n_proj >= cfg.min_sim3_proj:
+        with profiling.span("loop.sim3"):
+            ok_s, _, s_f, R_f, t_f, n_proj = _sim3_pair_guided(
+                state, kf_id, cand, self.cam_params, self._generator, cfg.cam_kind,
+                cfg.fix_scale, ext_matches=self._kf_matches(state, kf_id, cand),
+                **self._sim3_kwargs())
+            n_proj, ok_s = int(n_proj), bool(ok_s)
+        if ok_s and n_proj >= cfg.min_sim3_proj:
             s, R, t, n_inl = s_f, R_f, t_f, n_proj
         elif hyp["q_last"] == kf_id:
             s, R, t, n_inl = hyp["s"], hyp["R"], hyp["t"], hyp["n_inliers"]
@@ -806,42 +824,47 @@ class LoopCloser:
             return state, {"loop": False}
         map_q, map_c = (int(x) for x in state.kf_map_id[[kf_id, cand]].cpu())
         if map_q != map_c:
-            in_old = state.kf_active & (state.kf_map_id == map_c)
-            state = _merge_maps_kernel(state, kf_id, cand, s, R, t)
-            n_fused = 0
-            for _ in range(max(1, cfg.merge_rounds)):
-                state, n_f = _fuse_after_loop_kernel(state, kf_id, cand, self.cam_params,
-                                                     cfg.cam_kind, prefer_query=True)
-                n_fused += int(n_f)
-                if cfg.welding_ba_iters <= 0:
-                    break
-                P0_R, P0_t = state.kf_R_cw, state.kf_t_cw
-                state = _welding_ba_kernel(state, kf_id, cand, self.cam_params, cfg.cam_kind,
-                                           cfg.welding_ba_iters, cfg.welding_window, in_old,
-                                           bf=self._bf_arr())
-                if cfg.merge_pose_graph_iters > 0:
-                    state, _ = _merge_propagate_kernel(
-                        state, kf_id, cand, P0_R, P0_t, in_old, cfg.min_covis_weight,
-                        cfg.merge_pose_graph_iters, cfg.welding_window,
-                        mode=self.pose_graph_mode)
-            info = {"loop": True, "merge": True, "candidate": cand, "query_kf": kf_id,
-                    "n_inliers": n_inl, "scale": float(s), "n_fused": n_fused}
+            with profiling.span("loop.merge"):
+                in_old = state.kf_active & (state.kf_map_id == map_c)
+                state = _merge_maps_kernel(state, kf_id, cand, s, R, t)
+                n_fused = 0
+                for _ in range(max(1, cfg.merge_rounds)):
+                    state, n_f = _fuse_after_loop_kernel(state, kf_id, cand, self.cam_params,
+                                                         cfg.cam_kind, prefer_query=True)
+                    n_fused += int(n_f)
+                    if cfg.welding_ba_iters <= 0:
+                        break
+                    P0_R, P0_t = state.kf_R_cw, state.kf_t_cw
+                    state = _welding_ba_kernel(state, kf_id, cand, self.cam_params, cfg.cam_kind,
+                                               cfg.welding_ba_iters, cfg.welding_window, in_old,
+                                               bf=self._bf_arr())
+                    if cfg.merge_pose_graph_iters > 0:
+                        state, _ = _merge_propagate_kernel(
+                            state, kf_id, cand, P0_R, P0_t, in_old, cfg.min_covis_weight,
+                            cfg.merge_pose_graph_iters, cfg.welding_window,
+                            mode=self.pose_graph_mode)
+                info = {"loop": True, "merge": True, "candidate": cand, "query_kf": kf_id,
+                        "n_inliers": n_inl, "scale": float(s), "n_fused": n_fused}
             self.loops_closed.append((kf_id, cand))
             self._ban_until_kf = kf_id + cfg.post_fire_ban_kfs
             return state, info
-        state, costs = _correct_loop_kernel(state, kf_id, cand, s, R, t, cfg.min_covis_weight,
-                                            cfg.pose_graph_iters, mode=self.pose_graph_mode)
-        state, n_fused = _fuse_after_loop_kernel(state, kf_id, cand, self.cam_params,
-                                                 cfg.cam_kind)
+        with profiling.span("loop.pose_graph"):
+            state, costs = _correct_loop_kernel(state, kf_id, cand, s, R, t,
+                                                cfg.min_covis_weight, cfg.pose_graph_iters,
+                                                mode=self.pose_graph_mode)
+        with profiling.span("loop.fuse"):
+            state, n_fused = _fuse_after_loop_kernel(state, kf_id, cand, self.cam_params,
+                                                     cfg.cam_kind)
         if cfg.run_gba:
             if cfg.gba_chunk_iters > 0:
                 # The first chunk rides this frame, the rest one per poll.
                 state = self._gba_chunk(state, fresh=True)
                 self._gba_pending = max(-(-cfg.gba_iters // cfg.gba_chunk_iters) - 1, 0)
             else:
-                state = maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
-                                              iters=cfg.gba_iters, mesh=self.mesh,
-                                              bf=self._bf_arr())
+                with profiling.span("loop.gba"):
+                    state = maintenance.global_ba(state, self.cam_params, cam_kind=cfg.cam_kind,
+                                                  iters=cfg.gba_iters, mesh=self.mesh,
+                                                  bf=self._bf_arr())
         info = {"loop": True, "candidate": cand, "query_kf": kf_id, "n_inliers": n_inl,
                 "scale": float(s), "n_fused": int(n_fused), "pg_cost": float(costs[-1])}
         self.loops_closed.append((kf_id, cand))

@@ -31,6 +31,7 @@ from ..map import maintenance
 from ..map import keyframe_database as kdb
 from ..map import map_state as ms
 from ..ops import _build
+from ..utils import profiling
 from ..utils.timing import StageTimers
 from . import tracking as T
 from .host_copy import HostCopy
@@ -131,7 +132,13 @@ class MonocularSLAM:
     # ------------------------------------------------------------------
     def track_frame(self, kpts, rays, desc, valid, time) -> dict:
         """Process one frame (arrays shaped [N, ...]). Returns tracking info
-        (in pipeline mode, of the frame finished now, K frames back)."""
+        (in pipeline mode, of the frame finished now, K frames back). The
+        spans the frame opens, the loop closer's included, keep their host
+        samples in self.timers.samples."""
+        with profiling.frame_sink(self.timers.samples):
+            return self._track_frame(kpts, rays, desc, valid, time)
+
+    def _track_frame(self, kpts, rays, desc, valid, time) -> dict:
         dev = self.device
         frame = T.FrameData(torch.as_tensor(kpts, device=dev).float(),
                             torch.as_tensor(rays, device=dev).float(),
@@ -182,8 +189,9 @@ class MonocularSLAM:
                 else torch.full((self.state.N,), -1, dtype=torch.int32, device=dev)
             ext_matches = None
             if self.matcher is not None:
-                ext_matches = self.matcher(prev.kpts, prev.desc, prev.valid,
-                                           frame.kpts, frame.desc, frame.valid)
+                with profiling.span("track.match"):
+                    ext_matches = self.matcher(prev.kpts, prev.desc, prev.valid,
+                                               frame.kpts, frame.desc, frame.valid)
             cfg = self.cfg
             if fused:
                 if self._policy is None:
@@ -617,19 +625,20 @@ class MonocularSLAM:
         ext_ids = ext_tri = None
         if (self.matcher is not None and self.n_kf >= 2
                 and hasattr(self.matcher, "match_batch")):
-            # Learned triangulation matches: the top-2 covisible neighbours,
-            # then ONE batched match for both pairs.
-            ids = T._top_covis_for_frame(self.state, frame.landmark_idx,
-                                         frame.valid, n=2).cpu().numpy()
-            if (ids >= 0).any():
-                jid = torch.as_tensor(np.clip(ids, 0, self.state.K - 1),
-                                      device=self.device).long()
-                B = len(ids)
-                ext_tri = self.matcher.match_batch(
-                    frame.kpts.expand(B, -1, -1), frame.desc.expand(B, -1, -1),
-                    frame.valid.expand(B, -1), self.state.kf_kpts[jid],
-                    self.state.kf_desc[jid].float(), self.state.kf_kpt_valid[jid])
-                ext_ids = torch.as_tensor(ids, dtype=torch.int32, device=self.device)
+            with profiling.span("insert.tri_match"):
+                # Learned triangulation matches: the top-2 covisible
+                # neighbours, then ONE batched match for both pairs.
+                ids = T._top_covis_for_frame(self.state, frame.landmark_idx,
+                                             frame.valid, n=2).cpu().numpy()
+                if (ids >= 0).any():
+                    jid = torch.as_tensor(np.clip(ids, 0, self.state.K - 1),
+                                          device=self.device).long()
+                    B = len(ids)
+                    ext_tri = self.matcher.match_batch(
+                        frame.kpts.expand(B, -1, -1), frame.desc.expand(B, -1, -1),
+                        frame.valid.expand(B, -1), self.state.kf_kpts[jid],
+                        self.state.kf_desc[jid].float(), self.state.kf_kpt_valid[jid])
+                    ext_ids = torch.as_tensor(ids, dtype=torch.int32, device=self.device)
         self.state, scalars, self._local_mask = T._insert_keyframe_body(
             self.state, frame.R_cw, frame.t_cw, frame.kpts, frame.rays,
             frame.desc, frame.valid, frame.landmark_idx, frame.time,

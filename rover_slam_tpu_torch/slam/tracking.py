@@ -25,6 +25,7 @@ from ..map import maintenance as mnt
 from ..ops import association as assoc
 from ..ops import scatterless
 from ..optim import pose_opt, ba, pnp, robust
+from ..utils import profiling
 
 # Scale/view-adaptive projection-search gates (reference MapPoint::
 # PredictScale distance band + isInFrustum viewing cos).
@@ -262,48 +263,52 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
     N = cur_kpts.shape[0]
     dev = cur_kpts.device
     if ext_matches is None:
-        matches, _ = assoc.mutual_nn_match(prev_desc, prev_valid, cur_desc,
-                                           cur_valid, ratio=0.8)
+        with profiling.span("track.match"):
+            matches, _ = assoc.mutual_nn_match(prev_desc, prev_valid, cur_desc,
+                                               cur_valid, ratio=0.8)
     else:
         matches = ext_matches
     # --- motion-model stage ---
-    has = (matches >= 0) & (prev_lidx >= 0) & prev_valid
-    inv_m = assoc.invert_matches(torch.where(has, matches, -1), N)
-    cur_lm0 = _gather_lm(prev_lidx, inv_m, N)
-    lm_c = cur_lm0.long().clamp(0, L - 1)
-    cand_ok = (cur_lm0 >= 0) & state.lm_active[lm_c] & cur_valid
-    res_m = pose_opt.pose_optimization(R_pred, t_pred, state.lm_pos[lm_c], cur_kpts,
-                                       cand_ok, cam_params, cam_kind=cam_kind,
-                                       rounds=motion_rounds,
-                                       iters_per_round=motion_iters, check_cost=False,
-                                       invd=cur_invd, bf=bf)
-    n_cand = torch.sum(cand_ok, dtype=torch.int32)
-    motion_ok = (n_cand >= min_matches_motion) & (res_m.n_inliers >= min_inliers_track)
+    with profiling.span("track.motion"):
+        has = (matches >= 0) & (prev_lidx >= 0) & prev_valid
+        inv_m = assoc.invert_matches(torch.where(has, matches, -1), N)
+        cur_lm0 = _gather_lm(prev_lidx, inv_m, N)
+        lm_c = cur_lm0.long().clamp(0, L - 1)
+        cand_ok = (cur_lm0 >= 0) & state.lm_active[lm_c] & cur_valid
+        res_m = pose_opt.pose_optimization(R_pred, t_pred, state.lm_pos[lm_c], cur_kpts,
+                                           cand_ok, cam_params, cam_kind=cam_kind,
+                                           rounds=motion_rounds,
+                                           iters_per_round=motion_iters, check_cost=False,
+                                           invd=cur_invd, bf=bf)
+        n_cand = torch.sum(cand_ok, dtype=torch.int32)
+        motion_ok = (n_cand >= min_matches_motion) & (res_m.n_inliers >= min_inliers_track)
+        motion_ok_host = bool(motion_ok)
 
     # --- reference-keyframe fallback (only when the motion model failed) ---
     no_lm = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    if bool(motion_ok):
+    if motion_ok_host:
         ref_ok, R_r, t_r, lm_r = torch.zeros((), dtype=torch.bool, device=dev), \
             R_pred, t_pred, no_lm
     else:
-        ref = ref_kf.long().clamp(0, K - 1)
-        ref_lidx = state.kf_landmark_idx[ref]
-        ref_has = state.kf_kpt_valid[ref] & (ref_lidx >= 0)
-        m_ref, _ = assoc.mutual_nn_match(state.kf_desc[ref].float(), ref_has,
-                                         cur_desc, cur_valid, ratio=0.8)
-        inv_r = assoc.invert_matches(torch.where((m_ref >= 0) & ref_has, m_ref, -1), N)
-        lm_rr = _gather_lm(ref_lidx, inv_r, N)
-        lmc = lm_rr.long().clamp(0, L - 1)
-        okc = (lm_rr >= 0) & state.lm_active[lmc] & cur_valid
-        res_r = pose_opt.pose_optimization(R_pred, t_pred, state.lm_pos[lmc], cur_kpts,
-                                           okc, cam_params, cam_kind=cam_kind,
-                                           rounds=motion_rounds,
-                                           iters_per_round=motion_iters,
-                                           check_cost=False, invd=cur_invd, bf=bf)
-        ref_ok = (torch.sum(okc, dtype=torch.int32) >= min_matches_ref_kf) & \
-            (res_r.n_inliers >= min_inliers_track)
-        R_r, t_r = res_r.R_cw, res_r.t_cw
-        lm_r = torch.where(res_r.inliers, lm_rr, -1)
+        with profiling.span("track.ref_kf"):
+            ref = ref_kf.long().clamp(0, K - 1)
+            ref_lidx = state.kf_landmark_idx[ref]
+            ref_has = state.kf_kpt_valid[ref] & (ref_lidx >= 0)
+            m_ref, _ = assoc.mutual_nn_match(state.kf_desc[ref].float(), ref_has,
+                                             cur_desc, cur_valid, ratio=0.8)
+            inv_r = assoc.invert_matches(torch.where((m_ref >= 0) & ref_has, m_ref, -1), N)
+            lm_rr = _gather_lm(ref_lidx, inv_r, N)
+            lmc = lm_rr.long().clamp(0, L - 1)
+            okc = (lm_rr >= 0) & state.lm_active[lmc] & cur_valid
+            res_r = pose_opt.pose_optimization(R_pred, t_pred, state.lm_pos[lmc], cur_kpts,
+                                               okc, cam_params, cam_kind=cam_kind,
+                                               rounds=motion_rounds,
+                                               iters_per_round=motion_iters,
+                                               check_cost=False, invd=cur_invd, bf=bf)
+            ref_ok = (torch.sum(okc, dtype=torch.int32) >= min_matches_ref_kf) & \
+                (res_r.n_inliers >= min_inliers_track)
+            R_r, t_r = res_r.R_cw, res_r.t_cw
+            lm_r = torch.where(res_r.inliers, lm_rr, -1)
     stage1_ok = motion_ok | ref_ok
     R1 = torch.where(motion_ok, res_m.R_cw, torch.where(ref_ok, R_r, R_pred))
     t1 = torch.where(motion_ok, res_m.t_cw, torch.where(ref_ok, t_r, t_pred))
@@ -311,54 +316,55 @@ def _track_step_body(state: ms.MapState, prev_desc, prev_valid, prev_lidx,
                           torch.where(ref_ok, lm_r, -1))
 
     # --- local-map stage ---
-    if local_map_only:
-        if local_mask is not None:
-            search_mask = state.lm_active & local_mask
+    with profiling.span("track.local_map"):
+        if local_map_only:
+            if local_mask is not None:
+                search_mask = state.lm_active & local_mask
+            else:
+                W = ms.covisibility(state)
+                nbrs = (W[ref_kf] > 0).index_fill(0, ref_kf.reshape(1).long(), True)
+                obs = ms.observation_matrix(state)
+                search_mask = state.lm_active & ((nbrs.float() @ obs) > 0)
         else:
-            W = ms.covisibility(state)
-            nbrs = (W[ref_kf] > 0).index_fill(0, ref_kf.reshape(1).long(), True)
-            obs = ms.observation_matrix(state)
-            search_mask = state.lm_active & ((nbrs.float() @ obs) > 0)
-    else:
-        search_mask = state.lm_active
-    search_mask = search_mask & (state.lm_map_id == state.active_map_id)
-    uv, _, visible = assoc.project_landmarks(state.lm_pos, search_mask, R1, t1,
-                                             cam_params, cam_kind, image_hw,
-                                             max_depth=max_depth)
-    anc = state.lm_anchor_kf.long().clamp(0, K - 1)
-    C_a = -torch.einsum("lji,lj->li", state.kf_R_cw[anc], state.kf_t_cw[anc])
-    C_c = -torch.einsum("ji,j->i", R1, t1)
-    d_a = torch.linalg.norm(state.lm_pos - C_a, dim=-1)
-    rel_c = state.lm_pos - C_c
-    d_c = torch.linalg.norm(rel_c, dim=-1)
-    has_n = torch.linalg.norm(state.lm_normal, dim=-1) > 0.5
-    cosv = torch.sum(state.lm_normal * rel_c, dim=-1) / torch.clamp(d_c, min=1e-9)
-    band = ADAPT_DEPTH_BAND
-    gate_ok = (d_a > 1e-6) & (d_c >= d_a / band) & (d_c <= d_a * band) \
-        & (~has_n | (cosv > ADAPT_COS_MIN))
-    visible = visible & gate_ok
-    rad_l = proj_radius * torch.where(cosv > 0.998, 0.5, 1.0)
-    kpt_lm, _ = assoc.projection_match(uv, state.lm_desc.float(), visible, cur_kpts,
-                                       cur_desc, cur_valid, radius=rad_l,
-                                       th_desc2=desc_th2)
-    cur_lm = torch.where(cur_lm1 >= 0, cur_lm1, kpt_lm)
-    lm_c2 = cur_lm.long().clamp(0, L - 1)
-    ok2 = (cur_lm >= 0) & cur_valid & state.lm_active[lm_c2]
-    res_l = pose_opt.pose_optimization(R1, t1, state.lm_pos[lm_c2], cur_kpts, ok2,
-                                       cam_params, cam_kind=cam_kind,
-                                       rounds=local_rounds,
-                                       iters_per_round=local_iters, check_cost=False,
-                                       invd=cur_invd, bf=bf)
-    cur_lm = torch.where(res_l.inliers, cur_lm, -1)
-    pose_finite = torch.all(torch.isfinite(res_l.R_cw)) & torch.all(torch.isfinite(res_l.t_cw))
-    ok = (res_l.n_inliers >= min_inliers_local_map) & pose_finite
-    cos_dR = 0.5 * (torch.trace(res_l.R_cw @ R_pred.T) - 1.0)
-    weak = (res_l.n_inliers >= min_inliers_weak) & pose_finite & ~ok & (cos_dR > 0.94)
-    usable = ok | weak
-    R2 = torch.where(usable, res_l.R_cw, R_pred)
-    t2 = torch.where(usable, res_l.t_cw, t_pred)
-    flags = torch.stack([ok.to(torch.int32), res_l.n_inliers.to(torch.int32),
-                         stage1_ok.to(torch.int32), n_cand, weak.to(torch.int32)])
+            search_mask = state.lm_active
+        search_mask = search_mask & (state.lm_map_id == state.active_map_id)
+        uv, _, visible = assoc.project_landmarks(state.lm_pos, search_mask, R1, t1,
+                                                 cam_params, cam_kind, image_hw,
+                                                 max_depth=max_depth)
+        anc = state.lm_anchor_kf.long().clamp(0, K - 1)
+        C_a = -torch.einsum("lji,lj->li", state.kf_R_cw[anc], state.kf_t_cw[anc])
+        C_c = -torch.einsum("ji,j->i", R1, t1)
+        d_a = torch.linalg.norm(state.lm_pos - C_a, dim=-1)
+        rel_c = state.lm_pos - C_c
+        d_c = torch.linalg.norm(rel_c, dim=-1)
+        has_n = torch.linalg.norm(state.lm_normal, dim=-1) > 0.5
+        cosv = torch.sum(state.lm_normal * rel_c, dim=-1) / torch.clamp(d_c, min=1e-9)
+        band = ADAPT_DEPTH_BAND
+        gate_ok = (d_a > 1e-6) & (d_c >= d_a / band) & (d_c <= d_a * band) \
+            & (~has_n | (cosv > ADAPT_COS_MIN))
+        visible = visible & gate_ok
+        rad_l = proj_radius * torch.where(cosv > 0.998, 0.5, 1.0)
+        kpt_lm, _ = assoc.projection_match(uv, state.lm_desc.float(), visible, cur_kpts,
+                                           cur_desc, cur_valid, radius=rad_l,
+                                           th_desc2=desc_th2)
+        cur_lm = torch.where(cur_lm1 >= 0, cur_lm1, kpt_lm)
+        lm_c2 = cur_lm.long().clamp(0, L - 1)
+        ok2 = (cur_lm >= 0) & cur_valid & state.lm_active[lm_c2]
+        res_l = pose_opt.pose_optimization(R1, t1, state.lm_pos[lm_c2], cur_kpts, ok2,
+                                           cam_params, cam_kind=cam_kind,
+                                           rounds=local_rounds,
+                                           iters_per_round=local_iters, check_cost=False,
+                                           invd=cur_invd, bf=bf)
+        cur_lm = torch.where(res_l.inliers, cur_lm, -1)
+        pose_finite = torch.all(torch.isfinite(res_l.R_cw)) & torch.all(torch.isfinite(res_l.t_cw))
+        ok = (res_l.n_inliers >= min_inliers_local_map) & pose_finite
+        cos_dR = 0.5 * (torch.trace(res_l.R_cw @ R_pred.T) - 1.0)
+        weak = (res_l.n_inliers >= min_inliers_weak) & pose_finite & ~ok & (cos_dR > 0.94)
+        usable = ok | weak
+        R2 = torch.where(usable, res_l.R_cw, R_pred)
+        t2 = torch.where(usable, res_l.t_cw, t_pred)
+        flags = torch.stack([ok.to(torch.int32), res_l.n_inliers.to(torch.int32),
+                             stage1_ok.to(torch.int32), n_cand, weak.to(torch.int32)])
     return R2, t2, torch.where(usable, cur_lm, -1).to(torch.int32), flags
 
 
@@ -396,52 +402,56 @@ def _insert_keyframe_body(state: ms.MapState, R, t, kpts, rays, desc, valid, lid
         ids, wts = ms.best_covisible(W, kf_id, 2)
     n_new = []
     for j in range(2):
-        nbr = ids[j].long().clamp(0, K - 1)
-        enabled = (ids[j] >= 0) & (wts[j] >= 10)
-        state, n_j = _triangulate_pair_kernel_body(
-            state, kf_id, nbr, cam_params, cam_kind, enabled,
-            ext_matches=None if ext_tri_matches is None else ext_tri_matches[j])
+        with profiling.span("insert.triangulate"):
+            nbr = ids[j].long().clamp(0, K - 1)
+            enabled = (ids[j] >= 0) & (wts[j] >= 10)
+            state, n_j = _triangulate_pair_kernel_body(
+                state, kf_id, nbr, cam_params, cam_kind, enabled,
+                ext_matches=None if ext_tri_matches is None else ext_tri_matches[j])
         n_new.append(n_j)
-    state, _, _ = mnt.fuse_into_keyframe(state, kf_id, cam_params, cam_kind, obs=obs)
-    state = mnt.update_distinctive_descriptors(state, kf_id, obs=obs)
+    with profiling.span("insert.fuse"):
+        state, _, _ = mnt.fuse_into_keyframe(state, kf_id, cam_params, cam_kind, obs=obs)
+        state = mnt.update_distinctive_descriptors(state, kf_id, obs=obs)
     if run_ba and (ba_gate is None or bool(ba_gate)):
-        window, opt_mask = _covis_window(state, kf_id, n_opt, n_fixed)
-        state = _local_ba_body(state, window, opt_mask, cam_params, cam_kind, ba_iters,
-                               bf=bf)
+        with profiling.span("insert.local_ba"):
+            window, opt_mask = _covis_window(state, kf_id, n_opt, n_fixed)
+            state = _local_ba_body(state, window, opt_mask, cam_params, cam_kind, ba_iters,
+                                   bf=bf)
 
-    # Landmark statistics + culling at keyframe rate. The frustum test uses
-    # the default 480x640 image, as the JAX package's insert does.
-    _, _, visible_l = assoc.project_landmarks(state.lm_pos, state.lm_active,
-                                              state.kf_R_cw[kf_id],
-                                              state.kf_t_cw[kf_id], cam_params,
-                                              cam_kind)
-    li_kf = state.kf_landmark_idx[kf_id]
-    found_l = scatterless.seg_any(li_kf, li_kf >= 0, L)
-    state = mnt.update_found_visible(state, visible_l, found_l)
-    obs2 = ms.observation_matrix(state)
-    state = mnt.recount_lm_obs(state, obs=obs2)
-    state = mnt.cull_landmarks(state)
-    # Mean viewing direction over all observing keyframes.
-    n_obs_l = obs2.sum(0)
-    centers = -torch.einsum("kji,kj->ki", state.kf_R_cw, state.kf_t_cw)
-    sum_c = obs2.T @ torch.where(state.kf_active[:, None], centers, 0.0)
-    dirs = state.lm_pos * n_obs_l[:, None] - sum_c
-    nn_ = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-9)
-    state = state.replace(lm_normal=torch.where(
-        (state.lm_active & (n_obs_l > 0))[:, None], nn_, state.lm_normal))
-    # Local-map search mask: landmarks seen by this keyframe's neighbourhood.
-    w_row = obs2 @ obs2[kf_id]
-    nbrs = (w_row > 0).index_fill(0, kf_id.reshape(1).long(), True)
-    local_mask = ((nbrs.float() @ obs2) > 0) & state.lm_active
-    # Reference-KF tracked count for the keyframe policy: landmarks with >= 3
-    # observations only.
-    li_new = state.kf_landmark_idx[kf_id]
-    li_c = li_new.long().clamp(0, L - 1)
-    n_obs = torch.sum((li_new >= 0) & state.kf_kpt_valid[kf_id]
-                      & state.lm_active[li_c] & (state.lm_n_obs[li_c] >= 3), dtype=torch.int32)
-    scalars = torch.stack([kf_id.to(torch.int32), n_new[0].to(torch.int32),
-                           n_new[1].to(torch.int32), n_obs, state.n_kf, state.n_lm,
-                           state.lm_dropped])
+    with profiling.span("insert.lm_stats"):
+        # Landmark statistics + culling at keyframe rate. The frustum test uses
+        # the default 480x640 image, as the JAX package's insert does.
+        _, _, visible_l = assoc.project_landmarks(state.lm_pos, state.lm_active,
+                                                  state.kf_R_cw[kf_id],
+                                                  state.kf_t_cw[kf_id], cam_params,
+                                                  cam_kind)
+        li_kf = state.kf_landmark_idx[kf_id]
+        found_l = scatterless.seg_any(li_kf, li_kf >= 0, L)
+        state = mnt.update_found_visible(state, visible_l, found_l)
+        obs2 = ms.observation_matrix(state)
+        state = mnt.recount_lm_obs(state, obs=obs2)
+        state = mnt.cull_landmarks(state)
+        # Mean viewing direction over all observing keyframes.
+        n_obs_l = obs2.sum(0)
+        centers = -torch.einsum("kji,kj->ki", state.kf_R_cw, state.kf_t_cw)
+        sum_c = obs2.T @ torch.where(state.kf_active[:, None], centers, 0.0)
+        dirs = state.lm_pos * n_obs_l[:, None] - sum_c
+        nn_ = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-9)
+        state = state.replace(lm_normal=torch.where(
+            (state.lm_active & (n_obs_l > 0))[:, None], nn_, state.lm_normal))
+        # Local-map search mask: landmarks seen by this keyframe's neighbourhood.
+        w_row = obs2 @ obs2[kf_id]
+        nbrs = (w_row > 0).index_fill(0, kf_id.reshape(1).long(), True)
+        local_mask = ((nbrs.float() @ obs2) > 0) & state.lm_active
+        # Reference-KF tracked count for the keyframe policy: landmarks with >= 3
+        # observations only.
+        li_new = state.kf_landmark_idx[kf_id]
+        li_c = li_new.long().clamp(0, L - 1)
+        n_obs = torch.sum((li_new >= 0) & state.kf_kpt_valid[kf_id]
+                          & state.lm_active[li_c] & (state.lm_n_obs[li_c] >= 3), dtype=torch.int32)
+        scalars = torch.stack([kf_id.to(torch.int32), n_new[0].to(torch.int32),
+                               n_new[1].to(torch.int32), n_obs, state.n_kf, state.n_lm,
+                               state.lm_dropped])
     return state, scalars, local_mask
 
 

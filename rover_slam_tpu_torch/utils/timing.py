@@ -1,26 +1,23 @@
 """Per-stage wall-clock instrumentation (counterpart of
-rover_slam_tpu/utils/timing.py). Stage names follow the JAX package:
+rover_slam_tpu/utils/timing.py): the sink of host samples that the spans of
+utils/profiling.py write into. Stage names follow the JAX package:
 lm_track, new_kf, flags_fetch."""
 from __future__ import annotations
 
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 
 import numpy as np
+
+from . import profiling
 
 
 class StageTimers:
     def __init__(self):
         self.samples = defaultdict(list)
 
-    @contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append((time.perf_counter() - t0) * 1000.0)
+        """profiling.span(name) whose host ms land in these samples."""
+        return profiling.span(name, sink=self.samples)
 
     def add(self, name: str, ms: float):
         self.samples[name].append(ms)

@@ -11,6 +11,7 @@ import torch
 
 from rover_slam_tpu_torch.ops import flash_attention as fa
 from rover_slam_tpu_torch.ops import nn_matcher as nm
+from rover_slam_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -37,10 +38,10 @@ def test_attention_kernel_matches_plain(dev, B, N, Dh, dtype):
     mask = (torch.rand(B, N, generator=g) > 0.2).to(dev)
     if B > 1:
         mask[-1] = False                                  # an all-masked row
-    before = fa.attention_launches
+    before = profiling.counter("attention_launches")
     out = fa.masked_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert fa.attention_launches == before + 1
+    assert profiling.counter("attention_launches") == before + 1
     ref = fa.masked_attention_plain(q, k, v, mask)
     tol = 0.02 if dtype == torch.bfloat16 else 1e-4
     assert float((out.float() - ref.float()).abs().max()) < tol
@@ -88,12 +89,13 @@ def test_attention_kernel_gradient(dev, dtype):
     up = torch.randn(4, 512, 4, 64, generator=g).to(dev, dtype)
     a = [x.clone().requires_grad_(True) for x in (q, k, v)]
     b = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    launches, recomputes = fa.attention_launches, fa.backward_recomputes
+    launches = profiling.counter("attention_launches")
+    recomputes = profiling.counter("backward_recomputes")
     out = fa.masked_attention(*a, mask)
-    assert out.grad_fn is not None and fa.attention_launches == launches + 1
+    assert out.grad_fn is not None and profiling.counter("attention_launches") == launches + 1
     out.backward(up)
     fa.masked_attention_plain(*b, mask).backward(up)
-    assert fa.backward_recomputes == recomputes + 1
+    assert profiling.counter("backward_recomputes") == recomputes + 1
     for x, y in zip(a, b):
         assert torch.equal(x.grad, y.grad)
 
@@ -129,10 +131,10 @@ def test_nn_kernel_matches_plain(dev, N0, N1, D):
     d1[:n] = torch.nn.functional.normalize(d0[:n] + 0.05 * _unit(g, n, D, dev), dim=1)
     v1 = (torch.rand(N1, generator=g) > 0.1).to(dev)
     v1[0] = True
-    before = nm.nn_launches
+    before = profiling.counter("nn_launches")
     best, idx, second = nm.nn_reduce(d0, d1, v1)
     torch.cuda.synchronize()
-    assert nm.nn_launches == before + 1
+    assert profiling.counter("nn_launches") == before + 1
     _nn_check(best, idx, second, nm.nn_reduce_plain(d0, d1, v1))
     assert not bool(v1[idx.long()].logical_not().any())
 

@@ -16,6 +16,7 @@ from rover_slam_tpu.ops import association as assoc
 from rover_slam_tpu.ops.pallas_attention import masked_attention as jax_attention
 from rover_slam_tpu_torch.ops import flash_attention as fa
 from rover_slam_tpu_torch.ops import nn_matcher as nm
+from rover_slam_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -138,10 +139,10 @@ def test_attention_tile_edges_match_xla_path(Nq, Nk, dtype):
 
 def test_attention_launch_refuses_cpu_tensors():
     q, k, v, mask = (torch.from_numpy(x) for x in _qkvm(np.random.default_rng(4)))
-    before = fa.attention_launches
+    before = profiling.counter("attention_launches")
     with pytest.raises(ValueError):
         fa._launch(q, k, v, mask)
-    assert fa.attention_launches == before
+    assert profiling.counter("attention_launches") == before
 
 
 # --- B2: nearest-neighbour reduce ---------------------------------------------

@@ -27,6 +27,7 @@ from rover_slam_tpu_torch.models import lightglue as tlg, superpoint as tsp, wei
 from rover_slam_tpu_torch.ops import flash_attention as fa
 from rover_slam_tpu_torch.training import checkpoints, lightglue_train as tlgt
 from rover_slam_tpu_torch.training.checkpoints import flatten
+from rover_slam_tpu_torch.utils import profiling
 
 from test_torch_superpoint_train import assert_grads_match, jax_step
 
@@ -110,13 +111,13 @@ def test_kernel_attention_gradient_is_plain_autograd(monkeypatch, dtype, needs):
     up = torch.randn(B, Nq, H, Dh, generator=g).to(dtype)
     a = [x.clone().requires_grad_(n) for x, n in zip((q, k, v), needs)]
     b = [x.clone().requires_grad_(n) for x, n in zip((q, k, v), needs)]
-    n0 = fa.backward_recomputes
+    n0 = profiling.counter("backward_recomputes")
     out_f = fa.KernelAttention.apply(*a, mask)
     out_p = fa.masked_attention_plain(*b, mask)
     assert torch.equal(out_f, out_p) and out_f.grad_fn is not None
     out_f.backward(up)
     out_p.backward(up)
-    assert fa.backward_recomputes == n0 + 1
+    assert profiling.counter("backward_recomputes") == n0 + 1
     for x, y, n in zip(a, b, needs):
         assert (x.grad is None) == (not n)
         if n:
@@ -134,7 +135,7 @@ def test_gradient_reaches_every_projection(monkeypatch, route):
     batch = {k: torch.from_numpy(v) for k, v in lg_batch(np.random.default_rng(1), B=1).items()}
     model = W.flax_init_(tlg.LightGlue(num_layers=L), torch.Generator().manual_seed(0))
     d0 = batch["d0"].clone().requires_grad_(True)
-    n0 = fa.backward_recomputes
+    n0 = profiling.counter("backward_recomputes")
     la, _, _ = model(batch["k0"], d0, batch["v0"], batch["k1"], batch["d1"], batch["v1"])
     la[:, :-1, :-1][batch["v0"][:, :, None] & batch["v1"][:, None, :]].sum().backward()
     names = [n for n, _ in model.named_parameters() if n.split(".")[-2] in ("to_q", "to_k", "to_v")]
@@ -144,7 +145,8 @@ def test_gradient_reaches_every_projection(monkeypatch, route):
         if n in names:
             assert p.grad.abs().sum() > 0, n
     assert d0.grad.abs().sum() > 0
-    assert fa.backward_recomputes - n0 == (4 * L if route == "kernel_function" else 0)
+    recomputes = profiling.counter("backward_recomputes") - n0
+    assert recomputes == (4 * L if route == "kernel_function" else 0)
 
 
 def test_eval_matcher_matches_jax():

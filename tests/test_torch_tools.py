@@ -1,5 +1,5 @@
 """The port's tools: utils/profiling.py writes a Chrome trace on the CPU
-that holds the annotated spans; utils/viz.py draws the same RGB arrays as
+that holds the spans; utils/viz.py draws the same RGB arrays as
 the JAX package's viz from the same map (matplotlib, where installed); the
 demo (slam/demo.py) runs on the CPU and prints an ATE."""
 import json
@@ -18,7 +18,7 @@ from rover_slam_tpu_torch.utils import profiling
 def test_device_trace_holds_the_annotations(tmp_path):
     with profiling.device_trace(str(tmp_path)) as logdir:
         for i in range(3):
-            with profiling.step_annotate("frame", i), profiling.annotate("track_frame"):
+            with profiling.span(f"frame#{i}"), profiling.span("track_frame"):
                 torch.ones(8, 8) @ torch.ones(8, 8)
     assert logdir == str(tmp_path)
     with open(tmp_path / profiling.TRACE_FILE) as f:
