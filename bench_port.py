@@ -124,6 +124,7 @@ def _reset_launches():
 def _launches() -> dict:
     from rover_slam_tpu_torch.utils import profiling as P
     return {"attention": P.counter("attention_launches"), "nn": P.counter("nn_launches"),
+            "pose_opt": P.counter("pose_opt_launches"),
             "attention_backward": P.counter("backward_recomputes"),
             "attention_by_batch": P.counter_by("launches_by_batch"),
             "nn_by_shape": P.counter_by("launches_by_shape")}

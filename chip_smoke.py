@@ -18,7 +18,10 @@ synchronous runs.
                path K2's shape against plain autograd.
   3. timing  — each kernel at the main path's shapes beside its bound, its
                plain version and a library call that computes the same thing,
-               timed on the device by CUDA-graph replay (cuda_time_ms).
+               timed on the device by CUDA-graph replay (cuda_time_ms);
+               pose_opt at the tracker's two calls (M = 1024, mono pinhole,
+               2 x 5 and 2 x 6) beside its plain twin, which syncs and is
+               timed eagerly (eager_time_ms).
   4. lightglue — path A frame pairs through LightGlueMatcher, with the
                kernel and with two plain attentions swapped in: the matches
                must agree with the plain attention at the kernel's precision
@@ -185,15 +188,17 @@ import torch
 
 # The bench scene and loop (paths A, C, D, E and L2) live in bench_port.py,
 # the port's headline benchmark: one copy of the loop for both scripts.
-from bench_port import (D, H, LIGHTGLUE_LAYERS, NK, RELOC_L, W, PathA, _ate_cm,
+from bench_port import (D, FX, H, LIGHTGLUE_LAYERS, NK, RELOC_L, W, PathA, _ate_cm,
                         _launches, _reset_launches, _sync, _tracked, card, log, loop_summary,
                         run_path_c, trajectory_digest)
 
 from rover_slam_tpu_torch.utils.profiling import counter, reset_counters, snapshot_counters
 
-# Published H100 SXM peaks (bf16 dense tensor rate, HBM3 bandwidth).
+# Published H100 SXM peaks (bf16 dense tensor rate, HBM3 bandwidth, f32
+# outside the tensor cores).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 ATTN_TOL = 0.02          # bf16 attention vs plain (tests/test_pallas_attention.py)
 # best / second-best d^2: kernel and plain multiply the same bf16-rounded
 # inputs exactly and sum in f32, so they differ only in summation order.
@@ -307,9 +312,28 @@ def cuda_time_ms(fn, calls: int = 20, replays: int = 10, readings: int = 5) -> f
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def eager_time_ms(fn, calls: int = 5, readings: int = 5) -> float:
+    """Time of one eager call of fn, host enqueue and syncs included (for a
+    plain version that syncs and so cannot be captured in a graph): events
+    around `calls` calls after a warm-up, the median of `readings`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(readings):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -613,8 +637,56 @@ def phase_timing(dev):
             f"({-(-N1 // nm._split_cols(N0, N1))} column splits), plain {tp:.4f} ms, "
             f"cdist+topk {tl:.4f} ms, bound {bnd:.5f} ms ({by})")
         rows[f"nn_{N0}x{N1}x{Dd}"] = (t, tp, tl, bnd, by)
+    rows.update(_pose_opt_timing(g, dev))
     reset_counters(saved)
-    log("# timing rows (ms, plain_ms, library_ms, bound_ms, bound_by):", json.dumps(rows))
+    log("# timing rows (ms, plain_ms, library_ms, bound_ms, bound_by[, pose error]):",
+        json.dumps(rows))
+    return rows
+
+
+def pose_opt_inputs(g, M, dev):
+    """A tracker-sized pose problem: M landmarks 1.5-12 m in front of path
+    A's camera, observed with 0.3 px of noise, 10 % outliers, the start pose
+    ~0.02 rad and ~3 cm off."""
+    from rover_slam_tpu_torch.geometry import cameras, lie
+    cam = torch.tensor([FX, FX, W / 2.0, H / 2.0, 0, 0, 0, 0], dtype=torch.float32)
+    u = torch.rand(M, generator=g) * (W - 40) + 20
+    v = torch.rand(M, generator=g) * (H - 40) + 20
+    z = torch.rand(M, generator=g) * 10.5 + 1.5
+    Xc = torch.stack([(u - W / 2.0) / FX * z, (v - H / 2.0) / FX * z, z], -1)
+    uv = cameras.project(cameras.PINHOLE, cam, Xc) + 0.3 * torch.randn(M, 2, generator=g)
+    uv[torch.rand(M, generator=g) < 0.1] += 30.0
+    R0 = lie.so3_exp(0.02 * torch.randn(3, generator=g))
+    t0 = 0.03 * torch.randn(3, generator=g)
+    kw = dict(R_cw=R0, t_cw=t0, Xw=Xc, uv=uv, valid=torch.rand(M, generator=g) > 0.1,
+              cam_params=cam)
+    return {k: x.to(dev).contiguous() for k, x in kw.items()}
+
+
+def _pose_opt_timing(g, dev, M: int = 1024):
+    """pose_opt at the tracker's two calls a frame. Operations: ~300 f32
+    flops an edge an iteration (residual, Jacobian, 27 sums); bytes: the
+    edges read once, the outputs written once."""
+    from rover_slam_tpu_torch.optim import pose_opt as po
+    kw = pose_opt_inputs(g, M, dev)
+    rows = {}
+    for rounds, iters in ((2, 5), (2, 6)):
+        sched = dict(rounds=rounds, iters_per_round=iters, check_cost=False)
+        t = cuda_time_ms(lambda: po.pose_optimization(**kw, **sched))
+        tp = eager_time_ms(lambda: po.pose_optimization_plain(**kw, **sched))
+        out = po.pose_optimization(**kw, **sched)
+        ref = po.pose_optimization_plain(**kw, **sched)
+        err = max(float((out.R_cw - ref.R_cw).abs().max()),
+                  float((out.t_cw - ref.t_cw).abs().max()))
+        n_bytes = M * (12 + 8 + 1) + 48 + M * (1 + 4) + 56
+        n_flops = 300.0 * M * rounds * iters
+        bnd, by = bound_ms(n_bytes, n_flops, PEAK_F32_FLOPS)
+        log(f"# timing pose_opt M={M} {rounds}x{iters}: kernel {t:.4f} ms, plain "
+            f"{tp:.4f} ms (eager), pose error {err:.3g} (inliers {int(out.n_inliers)} / "
+            f"{int(ref.n_inliers)}), bound {bnd:.6f} ms ({by}, f32)")
+        if not err < 1e-4:
+            raise AssertionError(f"pose_opt {rounds}x{iters} disagrees with plain: {err}")
+        rows[f"pose_opt_{rounds}x{iters}"] = (t, tp, None, bnd, by, err)
     return rows
 
 
@@ -853,7 +925,7 @@ def phase_path_m(scene, e_run1, dev):
     res = {"stages": {k: {f: r[f] for f in ("ms", "b1", "b2", "syncs", "b1_by_batch")}
                       for k, r in timed.items()},
            "candidates": stages["detect_add_ms"]["candidates"], "n_kf": n_kf,
-           "launches": {k: launches[k] for k in ("attention", "nn")},
+           "launches": {k: launches[k] for k in ("attention", "nn", "pose_opt")},
            "s": time.perf_counter() - t_m, "card": card()}
     log("# path M:", json.dumps(res))
     bad = [k for k, r in timed.items() if not (math.isfinite(r["ms"]) and r["ms"] > 0)]
@@ -1134,7 +1206,8 @@ def phase_path_l(scene, e_run1, dev):
     if not (m.shape == (1, entry.ENTRY_KPTS) and bool(torch.isfinite(sc).all())
             and bool(torch.isfinite(kp).all())):
         raise AssertionError(f"path L4: {l4}")
-    launches = {k: l2["launches"][k] + l4["launches"][k] for k in ("attention", "nn")}
+    launches = {k: l2["launches"][k] + l4["launches"][k]
+                for k in ("attention", "nn", "pose_opt")}
     res = {"L1": l1, "L2": l2, "L2_checks": check, "L3": l3, "L4": l4, "launches": launches,
            "s": time.perf_counter() - t_l, "card": card()}
     log(f"# path L: {res['s']:.1f} s, launches {json.dumps(launches)}")
@@ -1798,7 +1871,7 @@ def phase_path_h(tmp_root: str):
     if rc2 != 0:
         raise AssertionError(f"path H session 2: run_euroc returned {rc2}")
     fs2 = _frame_stats(s2["frames"])
-    launches = {k: l1[k] + l2[k] for k in ("attention", "nn")}
+    launches = {k: l1[k] + l2[k] for k in ("attention", "nn", "pose_opt")}
     launches["attention_by_batch"] = l1["attention_by_batch"]
     launches["nn_by_shape"] = l1["nn_by_shape"]
     res = {"tree_write_s": write_s, "png": png, "session1": {**fs1, **stats1,
@@ -2452,10 +2525,11 @@ def main():
         seconds[f"worker {group}"] = res["seconds"]
         paths.update({k: {"launches": v} for k, v in res["launches"].items()})
     log("# seconds by phase:", json.dumps(seconds))
-    launches = {k: sum(p["launches"][k] for p in paths.values()) for k in ("attention", "nn")}
+    launches = {k: sum(p["launches"][k] for p in paths.values())
+                for k in ("attention", "nn", "pose_opt")}
     log("# launches by path:", json.dumps({k: p["launches"] for k, p in paths.items()}))
 
-    ta, tn = timing["attention_B1"], timing["nn_512x512x64"]
+    ta, tn, tpo = timing["attention_B1"], timing["nn_512x512x64"], timing["pose_opt_2x6"]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "rover_slam_tpu_torch/csrc/flash_attention.cu",
@@ -2469,6 +2543,12 @@ def main():
          "launches": launches["nn"],
          "max_abs_err": nn_err, "ms": tn[0], "plain_ms": tn[1], "bound_ms": tn[3],
          "bound_by": tn[4], "library_ms": tn[2]},
+        {"name": "pose_opt", "route": "cuda",
+         "source": "rover_slam_tpu_torch/csrc/pose_opt.cu",
+         "replaces": None,     # the JAX package's pose_optimization is one XLA program
+         "launches": launches["pose_opt"],
+         "max_abs_err": tpo[5], "ms": tpo[0], "plain_ms": tpo[1], "bound_ms": tpo[3],
+         "bound_by": tpo[4], "library_ms": None},
     ]
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,11 @@ installed:
 import pytest
 import torch
 
+import pose_opt_problems
+from rover_slam_tpu_torch.geometry import cameras
 from rover_slam_tpu_torch.ops import flash_attention as fa
 from rover_slam_tpu_torch.ops import nn_matcher as nm
+from rover_slam_tpu_torch.optim import pose_opt as po
 from rover_slam_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +177,93 @@ def test_nn_kernel_is_deterministic(dev):
     a = nm.nn_reduce(d0, d1, v1)
     b = nm.nn_reduce(d0, d1, v1)
     assert all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+# tests/torch_parity.py's POSE (that module imports JAX).
+POSE_ATOL = 1e-4
+# (check_cost, rounds, iterations): the tracker's motion and local-map
+# stages, and pnp_ransac's refinement.
+SCHEDULES = [(False, 2, 5), (False, 2, 6), (True, 4, 10)]
+
+
+def _pose_opt_check(out, ref, kw, chi2_th=5.991):
+    """Kernel against plain on the same inputs: the pose within POSE_ATOL;
+    the inliers equal but on edges whose final chi2 (either side's) lies
+    within 1e-4 relative of its gate, n_inliers apart by at most their
+    count."""
+    assert torch.allclose(out.R_cw, ref.R_cw, atol=POSE_ATOL, rtol=0)
+    assert torch.allclose(out.t_cw, ref.t_cw, atol=POSE_ATOL, rtol=0)
+    g = pose_opt_problems.gate(kw, chi2_th)
+    near = ((out.chi2 - g).abs() <= 1e-4 * g) | ((ref.chi2 - g).abs() <= 1e-4 * g)
+    differ = out.inliers != ref.inliers
+    assert not bool((differ & ~near).any())
+    assert abs(int(out.n_inliers) - int(ref.n_inliers)) <= int(near.sum())
+    assert out.n_inliers.dtype == ref.n_inliers.dtype and out.n_inliers.dim() == 0
+
+
+@pytest.mark.parametrize("M", [300, 1024, 3000])
+@pytest.mark.parametrize("check_cost,rounds,iters", SCHEDULES)
+@pytest.mark.parametrize("stereo", [False, True])
+@pytest.mark.parametrize("cam_kind", [cameras.PINHOLE, cameras.KANNALA_BRANDT8])
+def test_pose_opt_kernel_matches_plain(dev, cam_kind, stereo, check_cost, rounds, iters, M):
+    """Both camera models, mono and stereo (invd <= 0 on 40 % of the edges),
+    the three schedules, the register path (M <= 1024) and the strided one."""
+    kw = pose_opt_problems.problem(M, cam_kind, stereo, seed=M + 7 * cam_kind, device=dev)
+    sched = dict(rounds=rounds, iters_per_round=iters, check_cost=check_cost)
+    key = f"{M}x{rounds}x{iters}" + ("/stereo" if stereo else "")
+    before = profiling.counter_by("pose_opt_launches").get(key, 0)
+    out = po.pose_optimization(**kw, **sched)
+    torch.cuda.synchronize()
+    assert profiling.counter_by("pose_opt_launches").get(key, 0) == before + 1
+    _pose_opt_check(out, po.pose_optimization_plain(**kw, **sched), kw)
+
+
+def test_pose_opt_kernel_all_edges_invalid(dev):
+    """No valid edge: the pose comes back where it started, no inliers."""
+    kw = pose_opt_problems.problem(1024, cameras.PINHOLE, False, seed=11, device=dev)
+    kw["valid"] = torch.zeros_like(kw["valid"])
+    out = po.pose_optimization(**kw, rounds=2, iters_per_round=6, check_cost=False)
+    ref = po.pose_optimization_plain(**kw, rounds=2, iters_per_round=6, check_cost=False)
+    _pose_opt_check(out, ref, kw)
+    assert int(out.n_inliers) == 0 and not bool(out.inliers.any())
+    assert torch.allclose(out.R_cw, kw["R_cw"], atol=1e-6, rtol=0)
+    assert torch.equal(out.t_cw, kw["t_cw"])
+
+
+@pytest.mark.parametrize("M", [1024, 3000])
+def test_pose_opt_kernel_non_finite_points(dev, M):
+    """Non-finite landmark rows poison H in both versions (NaN * 0 weight),
+    the zeroed step leaves the pose, and those rows are never inliers."""
+    kw = pose_opt_problems.problem(M, cameras.PINHOLE, True, seed=12, device=dev)
+    kw["Xw"][5] = float("nan")
+    kw["Xw"][9, 1] = float("inf")
+    for check_cost, rounds, iters in SCHEDULES:
+        sched = dict(rounds=rounds, iters_per_round=iters, check_cost=check_cost)
+        out = po.pose_optimization(**kw, **sched)
+        _pose_opt_check(out, po.pose_optimization_plain(**kw, **sched), kw)
+        assert not bool(out.inliers[5]) and not bool(out.inliers[9])
+
+
+@pytest.mark.parametrize("M", [1024, 3000])
+def test_pose_opt_kernel_is_deterministic(dev, M):
+    """A fixed reduction order and no atomics: two calls give the same bits."""
+    kw = pose_opt_problems.problem(M, cameras.KANNALA_BRANDT8, True, seed=13, device=dev)
+    for check_cost, rounds, iters in SCHEDULES:
+        sched = dict(rounds=rounds, iters_per_round=iters, check_cost=check_cost)
+        a = po.pose_optimization(**kw, **sched)
+        b = po.pose_optimization(**kw, **sched)
+        assert all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def test_pose_opt_kernel_refuses_what_it_does_not_take(dev):
+    kw = pose_opt_problems.problem(300, cameras.PINHOLE, False, seed=14, device=dev)
+    bad = [dict(cam_params=kw["cam_params"].cpu()),
+           dict(Xw=kw["Xw"].double()),
+           dict(uv=torch.cat([kw["uv"], kw["uv"]], dim=1)[:, ::2]),
+           dict(valid=kw["valid"].float()),
+           dict(invd=torch.ones(300, device=dev), bf=50.0)]
+    assert not bad[2]["uv"].is_contiguous()
+    for change in bad:
+        with pytest.raises((ValueError, TypeError)):
+            po.pose_optimization(**{**kw, **change}, rounds=2, iters_per_round=5,
+                                 check_cost=False)
