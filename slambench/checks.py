@@ -18,14 +18,26 @@ Numbers, each the widest over the samples the window kept (harness.Capture):
   distance, or the program's best distance from the reference's there,
   whichever is larger (squared L2 of unit descriptors), on the same inputs.
 Guarantees the configuration states: tracked_share (frames of the window
-logged OK), loops_in_window, ate_cm (window frames' camera centres against
-the ground truth, Sim3-aligned for a monocular configuration, SE3 for a
-metric one).
+logged OK), loops_in_window (>= loops_min, where that is above 0), ate_cm
+(window frames' camera centres against the ground truth, Sim3-aligned for a
+monocular configuration, SE3 for a metric one). A traffic's "guarantees"
+(loops_min, loops_max) take the place of the configuration's loop count
+(harness.route_guarantees); loops_max adds loops_total_max, the loops closed
+since the run's system started, warm-up frames included (<= loops_max): a
+route that never revisits must close no loop at all.
+
+Judges a configuration names: each name in its "checks" is a module
+slambench/judges/<name>.py whose judge(cfg, scene, cap, trees, dev,
+outcome, control) returns (numbers, control readings), each {number:
+value}, the second empty unless control. Each number is held <= the
+configuration's limits[number]; a number without a limit there fails the
+run (KeyError), with no default.
 
 A number with no sample to read is None, and fails.
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 import torch
@@ -93,7 +105,8 @@ def nn_gap(d: torch.Tensor, best: torch.Tensor, idx: torch.Tensor, valid1: torch
 def judge(cfg: dict, scene, cap, trees: dict, dev, outcome: dict,
           control: bool = False) -> dict:
     """{"checks": {name: value, limit, op, ok}, "control": readings of the
-    lower-precision control on the same samples (with control=True)}."""
+    lower-precision control on the same samples (with control=True)}. cfg:
+    the configuration as the cell runs it (harness.Cell.config)."""
     lim, g = cfg["limits"], cfg["guarantees"]
     checks, ctl = {}, {}
 
@@ -106,6 +119,8 @@ def judge(cfg: dict, scene, cap, trees: dict, dev, outcome: dict,
     add("tracked_share", sum(states) / max(len(states), 1), g["tracked_min"], ">=")
     if g.get("loops_min", 0) > 0:
         add("loops_in_window", outcome["n_loops"], g["loops_min"], ">=")
+    if "loops_max" in g:
+        add("loops_total_max", outcome["loops_total"], g["loops_max"], "<=")
     if len(outcome["est"]) >= 3:
         ate_m, _ = ate(outcome["est"], outcome["gt"], with_scale=g["ate_alignment"] == "sim3")
         ate_cm = ate_m * 100.0
@@ -166,5 +181,19 @@ def judge(cfg: dict, scene, cap, trees: dict, dev, outcome: dict,
         add("nn_gap", _max(gaps), lim["nn_gap"], "<=")
         if control:
             ctl["nn_gap"] = _max(gaps_c)
+
+    for name in cfg.get("checks", []):
+        numbers, readings_c = importlib.import_module(f"slambench.judges.{name}").judge(
+            cfg, scene, cap, trees, dev, outcome, control)
+        for k, v in numbers.items():
+            if k in checks:
+                raise ValueError(f"slambench: judge {name!r} reports {k!r}, which another "
+                                 f"check reports")
+            if k not in lim:
+                raise KeyError(f"slambench: judge {name!r} reports {k!r}, for which the "
+                               f"configuration {cfg['name']!r} gives no limit")
+            add(k, v, lim[k], "<=")
+        if control:
+            ctl.update(readings_c)
 
     return {"checks": checks, "control": ctl}

@@ -5,11 +5,12 @@
 For each seed: one run of the cell with a short window, then, on the same
 samples the window kept, the program's numbers and the control's: the
 reference put in the program's place in the configuration's control
-precision (fp8 for the bf16 networks and the B2 reduce, TF32 for the f32
-preintegration; reference/precision.py). Prints one JSON line per seed:
-the program's readings (lower) and the control's (upper). The benchmark's
-own runs do not run this; PERF.md records the readings the limits were set
-from.
+precision (fp8 for the bf16 networks and the B2 reduce;
+reference/precision.py), and the readings each judge the configuration
+names (slambench/judges/) reports for its own control. Prints one JSON line
+per seed: the program's readings (lower) and the control's (upper). The
+benchmark's own runs do not run this; PERF.md records the readings the
+limits were set from.
 """
 import argparse
 import contextlib

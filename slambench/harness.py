@@ -7,6 +7,21 @@ slambench/scenes/<generator>.py). Per-layer metrics are readers,
 slambench/metrics/<metric>.py. Everything is found by name, so a new cell,
 configuration, traffic mix or metric is new files and new entries.
 
+Hooks a new configuration fills with new files alone:
+- a system module may set SAMPLE_P = {kind: probability}: sample kinds that
+  Capture draws beside its own (superpoint, lightglue, nn), kept with
+  cap.keep(kind, ...) for the checks;
+- a configuration may list "checks": [name, ...]: judges,
+  slambench/judges/<name>.py, each returning numbers that checks.judge holds
+  against the configuration's limits;
+- a traffic file may hold "guarantees" with loops_min and loops_max alone,
+  which take the place of the configuration's loops_min in the
+  configuration the cell runs (Cell.config; a route decides whether a loop
+  can close);
+- a generator's render(i) may return [E, H, W], E images a frame (a stereo
+  pair): the frames are then [F, E, H, W] and the record's
+  images_per_frame is E.
+
 A run: make the traffic's route and the seed's scene on it (where the route
 starts), load the route's rendered frames (uint8, on the host, as a camera
 hands them over), build the system, run the traffic's warm-up frames, then
@@ -87,9 +102,13 @@ class Cell:
         self.entry = cells[workload]
         self.name = workload
         cfg_entry = {c["name"]: c for c in self.manifest["configs"]}[self.entry["config"]]
-        self.config = load_json(os.path.join(root, cfg_entry["file"]))
+        config = load_json(os.path.join(root, cfg_entry["file"]))
         self.traffic_name = self.entry["traffic"]
         self.traffic = load_json(os.path.join(HERE, "traffic", f"{self.traffic_name}.json"))
+        # the configuration as this cell runs it: the traffic's loop counts in
+        # place of its own
+        self.config = dict(config, guarantees=route_guarantees(config, self.traffic,
+                                                                self.traffic_name))
         self.end_to_end = [m for m in self.manifest["end_to_end"]
                            if name_in(workload, m.get("workloads"))]
         self.per_layer = [m for m in self.manifest["per_layer"]
@@ -103,12 +122,29 @@ def name_in(name: str, names) -> bool:
     return names is None or name in names
 
 
+ROUTE_GUARANTEES = ("loops_min", "loops_max")
+
+
+def route_guarantees(config: dict, traffic: dict, traffic_name: str) -> dict:
+    """The configuration's guarantees with the traffic's "guarantees" in
+    place of its loop count: a traffic may state loops_min and loops_max
+    and nothing else (tracked_min and the ATE limit are the
+    configuration's)."""
+    route = traffic.get("guarantees", {})
+    bad = sorted(set(route) - set(ROUTE_GUARANTEES))
+    if bad:
+        raise SystemExit(f"slambench: traffic {traffic_name!r} states guarantees {bad}; a "
+                         f"traffic may state only {list(ROUTE_GUARANTEES)}")
+    return {**config["guarantees"], **route}
+
+
 # --- frames --------------------------------------------------------------------
 
 def load_frames(cell: Cell, scene_mod, route) -> np.ndarray:
-    """The route's rendered uint8 frames [F, H, W], from the render cache
-    when it holds them (keyed by what they depend on: the traffic's world and
-    route, the camera and the generator's source; not the seed)."""
+    """The route's rendered uint8 frames [F, H, W] ([F, E, H, W] where a
+    frame is E images), from the render cache when it holds them (keyed by
+    what they depend on: the traffic's world and route, the camera and the
+    generator's source; not the seed)."""
     with open(scene_mod.__file__, "rb") as f:
         src = hashlib.sha256(f.read()).hexdigest()
     key = json.dumps({"scene": scene_mod.frame_key(cell.traffic, cell.config), "src": src},
@@ -140,12 +176,20 @@ class Capture:
     keep, for calls drawn from the seed while the window is open, copies of
     their inputs and outputs; the systems note SuperPoint's outputs the same
     way. Draws: each event of a kind is
-    kept with probability SAMPLE_P[kind] until SAMPLE_MAX are kept."""
+    kept with probability SAMPLE_P[kind] until SAMPLE_MAX are kept. A system
+    module's own SAMPLE_P (system_p) adds its kinds to these; it may not
+    change theirs."""
 
     SAMPLE_P = {"superpoint": 0.12, "lightglue": 0.12, "nn": 0.1}
     SAMPLE_MAX = 16
 
-    def __init__(self, seed: int, traced: bool):
+    def __init__(self, seed: int, traced: bool, system_p: dict = None):
+        system_p = dict(system_p or {})
+        clash = sorted(set(system_p) & set(self.SAMPLE_P))
+        if clash:
+            raise SystemExit(f"slambench: a system's SAMPLE_P redeclares the harness's sample "
+                             f"kinds {clash}")
+        self.sample_p = {**self.SAMPLE_P, **system_p}
         self.rng = random.Random(int(seed) * 7919 + 17)
         self.traced = traced
         self.in_window = False
@@ -153,7 +197,7 @@ class Capture:
         self.profiling = False
         self.lightglue_calls = []   # (frame, b, n, m, profiling)
         self.nn_calls = []          # (frame, n0, n1, d, profiling)
-        self.samples = {k: [] for k in self.SAMPLE_P}
+        self.samples = {k: [] for k in self.sample_p}
         self.batched_kept = False
 
     def span(self, name: str):
@@ -167,7 +211,7 @@ class Capture:
         beyond SAMPLE_MAX."""
         if not self.in_window:
             return False
-        hit = self.rng.random() < self.SAMPLE_P[kind]
+        hit = self.rng.random() < self.sample_p[kind]
         n = len(self.samples[kind])
         return ((force or n == 0) and n <= self.SAMPLE_MAX) or (hit and n < self.SAMPLE_MAX)
 
@@ -503,8 +547,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_process: float,
     frames_u8 = load_frames(cell, scene_mod, route)[scene.first:scene.first + len(scene.times)]
     from slambench.reference.weights import load_npz
     trees = {k: load_npz(os.path.join(root, p)) for k, p in cfg["weights"].items()}
-    cap = Capture(seed, trace)
-    system = cell.module("systems", cfg["system"]).System(cfg, scene, frames_u8, trees, dev, cap)
+    system_mod = cell.module("systems", cfg["system"])
+    cap = Capture(seed, trace, getattr(system_mod, "SAMPLE_P", None))
+    system = system_mod.System(cfg, scene, frames_u8, trees, dev, cap)
     n_frames = frames_u8.shape[0]
     warm = int(traffic["warm_frames"])
     tail_s = float(traffic["trace_tail_s"])     # the traced stretch: the window's last seconds
@@ -549,7 +594,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_process: float,
                 raised += 1
                 log(f"# frame {i} raised:\n{traceback.format_exc()}")
             t_end = time.perf_counter()
-            rows.append({"i": i, "ms": (t_end - t1) * 1e3, "profiled": cap.profiling,
+            rows.append({"i": i, "ms": (t_end - t1) * 1e3, "t_s": t_end - t0,
+                         "profiled": cap.profiling,
                          "kf_rose": system.slam.n_kf > n_kf0,
                          "loop_rose": len(system.slam.loop_events) > n_l0,
                          "stages": stage_diff(timers, st_before) if trace else None})
@@ -569,7 +615,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_process: float,
     outcome = system.outcome([r["i"] for r in rows], n_loops_window)
     record = None
     if trace:
-        record = build_record(cell, scene, rows, cap, tracer, window_stages, frames_u8.shape[1:])
+        record = build_record(cell, scene, rows, cap, tracer, window_stages,
+                              frames_u8.shape[1] if frames_u8.ndim == 4 else 1)
     system.release()
     del system
     if dev.type == "cuda":
@@ -587,6 +634,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_process: float,
         res["breakdown"] = breakdown(record)
     else:
         ms = np.asarray([r["ms"] for r in rows])
+        # every end-to-end metric the harness can take; a cell reports those
+        # BENCHMARK.json gives it
         e2e = {"fps": len(rows) / window_s, "frame_ms_median": float(np.median(ms)),
                "setup_s": setup_s}
         res["metrics"] = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
@@ -602,14 +651,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_process: float,
     return 0, res
 
 
-def build_record(cell, scene, rows, cap, tracer, window_stages, hw) -> dict:
-    """The traced run's record, which every per-layer metric reads."""
+def build_record(cell, scene, rows, cap, tracer, window_stages, images_per_frame: int) -> dict:
+    """The traced run's record, which every per-layer metric reads: one
+    image's size (the scene's) and the images a frame."""
     t = reduce_trace(tracer)
     t["wall_s"] = tracer.wall_s
     t["frames"] = sum(1 for r in rows if r["profiled"])
     t["syncs"] = tracer.syncs
     return {"cell": cell.name, "config": cell.config, "traffic": cell.traffic,
-            "image_hw": list(hw), "frames": rows, "stages": window_stages,
+            "image_hw": list(scene.image_hw), "images_per_frame": int(images_per_frame),
+            "frames": rows, "stages": window_stages,
             "lightglue_calls": cap.lightglue_calls, "nn_calls": cap.nn_calls, "trace": t}
 
 

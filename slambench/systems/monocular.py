@@ -98,7 +98,7 @@ class System:
         """What the window's frames came to: each frame's logged state, the
         estimated camera centres of the OK ones (after the map's final
         corrections) beside the ground truth, and the loops closed in the
-        window."""
+        window and since the system started."""
         from rover_slam_tpu_torch.slam import tracking as T
         from slambench.reference.trajectory import centres
         slam, scene = self.slam, self.scene
@@ -113,7 +113,8 @@ class System:
                  if o and t in row_of and np.isfinite(est_c[row_of[t]]).all()]
         return {"states_ok": ok, "est": est_c[[p[0] for p in pairs]] if pairs else np.zeros((0, 3)),
                 "gt": gt_c[[p[1] for p in pairs]] if pairs else np.zeros((0, 3)),
-                "n_loops": n_loops, "n_kf": int(slam.n_kf),
+                "n_loops": n_loops, "loops_total": len(slam.loop_events),
+                "n_kf": int(slam.n_kf),
                 "summary": {"tracked": sum(ok), "frames": len(ok), "n_kf": int(slam.n_kf),
                             "loops_in_window": n_loops,
                             "loops_total": len(slam.loop_events)}}

@@ -1,6 +1,7 @@
 """The lower-precision control of `correct` comes out as not correct: the
 reference put in the program's place in the configuration's control
-precision (fp8 for the bf16 networks and B2) fails the cell's limits on the samples a window kept.
+precision (fp8 for the bf16 networks and B2; a judge's own control for the
+numbers it reports) fails the cell's limits on the samples a window kept.
 
 On the CPU at the tiny size (tiny.py); on the card at each cell's own size,
 three seeds (marked cuda: skips without a card)."""

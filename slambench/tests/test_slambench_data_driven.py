@@ -56,7 +56,7 @@ def test_new_cell_and_metric_by_adding_files(tmp_path):
                            "chips": 1, "why": "test"})
     m["per_layer"].append({"name": "stretch_frames", "unit": "frames", "better": "higher",
                            "source": "program_counter", "layer": "whole frame",
-                           "moves": "fps", "workloads": ["tiny_wide.noisy"]})
+                           "moves": "frame_ms_median", "workloads": ["tiny_wide.noisy"]})
     m["per_layer"].append({"name": "port_track_host_ms", "unit": "ms", "better": "lower",
                            "source": "program_span", "layer": "tracking",
                            "moves": "frame_ms_median", "workloads": ["tiny_wide.noisy"]})

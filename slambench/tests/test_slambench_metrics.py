@@ -24,7 +24,7 @@ def record():
               frame(2, 999.0, profiled=True, kf=True, loop=True, stages={"lm_track": [500.0]}),
               frame(3, 200.0, profiled=True),
               frame(4, 4000.0, loop=True, stages={"lm_track": [50.0]})]
-    return {"config": CFG, "image_hw": [480, 752], "frames": frames,
+    return {"config": CFG, "image_hw": [480, 752], "images_per_frame": 1, "frames": frames,
             "lightglue_calls": [(0, 1, 1024, 1024, False), (2, 1, 1024, 1024, True),
                                 (3, 2, 1024, 1024, True)],
             "nn_calls": [(2, 1024, 1024, 256, True), (4, 1024, 16384, 256, False)],
